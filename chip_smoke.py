@@ -7,12 +7,16 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc builds every kernel of the main path from the checkout's
-             sources (ops/csrc/read_conv.cu) and reports ptxas' resources;
+             sources (ops/csrc/read_conv.cu) and reports ptxas' resources,
+             the read rows, dynamic shared memory and threads per block and
+             the resident blocks per SM;
   kernel     read_conv_reduce (CUDA) against its plain PyTorch version on the
              card, fp32 with TF32 off, for C = 6 and C = 7, at ~40k packed
              rows (2049 alleles, an odd A, at 32-read buckets and ~60%
              occupancy, with padding rows and fully masked alleles); error,
-             kernel and plain medians, and the bound from this run's inputs;
+             kernel and plain medians, and the bounds from this run's inputs:
+             fp32 FMA, 3xTF32 on the tensor cores (the kernel's route, and
+             its bound_ms) and a single TF32 pass;
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -38,8 +42,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published peaks (NVIDIA data sheets, dense): fp32 outside the tensor
-# cores, TF32 on the tensor cores (the bound of a later tensor-core kernel),
-# and memory bandwidth, by card
+# cores, TF32 on the tensor cores, and memory bandwidth, by card
 PEAKS = {"SXM": {"fp32": 67e12, "tf32": 495e12, "bytes": 3.35e12},
          "PCIe": {"fp32": 51e12, "tf32": 378e12, "bytes": 2.0e12}}
 
@@ -109,7 +112,8 @@ def build_phase():
     ptxas = [line.strip() for line in report.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": seconds,
-          "library": os.path.relpath(path, ROOT), "ptxas": ptxas})
+          "library": os.path.relpath(path, ROOT), "ptxas": ptxas,
+          "launch": {c: rc.kernel_info(c) for c in (6, 7)}})
 
 
 def kernel_inputs(rng, channels, device):
@@ -173,15 +177,18 @@ def kernel_phase(name, channels, seed):
     nbytes = (rows.numel() + row_allele.numel() * 4 + row_valid.numel() * 4
               + folded.flat.numel() * 4 + got.numel() * 4)
     peaks = card_peaks(torch.cuda.get_device_name(0))
-    flop_ms = 1e3 * flop / peaks["fp32"]
     byte_ms = 1e3 * nbytes / peaks["bytes"]
+    fp32_ms = max(1e3 * flop / peaks["fp32"], byte_ms)
+    # the kernel issues every product as three TF32 mma passes (3xTF32)
+    tf32x3_ms = 1e3 * 3 * flop / peaks["tf32"]
     line = {"phase": "kernel", "kernel": "read_conv_reduce", "C": channels,
             "nb": rows.shape[0], "A": A, "rows_computed": computed,
             "max_abs_err": err.max().item(), "max_rel_err": max_rel,
             "rtol": 1e-4, "atol": 1e-3, "masked_alleles_zero": zeros_exact,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "bound_ms": max(tf32x3_ms, byte_ms),
+            "bound_by": "operations" if tf32x3_ms >= byte_ms else "bytes",
+            "fp32_bound_ms": fp32_ms, "tf32x3_bound_ms": tf32x3_ms,
             "tf32_bound_ms": max(1e3 * flop / peaks["tf32"], byte_ms),
             "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
             "tflop_per_s": flop / ms / 1e9}
@@ -293,7 +300,8 @@ def main():
         "max_abs_err": max(line["max_abs_err"] for line in lines),
         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
-        "library_ms": None}]})
+        "fp32_bound_ms": k6["fp32_bound_ms"],
+        "ms_C7": lines[1]["ms"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-// Fused read convolver + per-allele reduction for NVIDIA Hopper (sm_90a).
+// Fused read convolver + per-allele reduction for NVIDIA Hopper (sm_90a),
+// on the tensor cores with 3xTF32 warp-level mma.sync.
 //
 // Replaces the two Pallas TPU kernels of hello_tpu/ops/read_conv.py and the
 // masked reduction they end in:
@@ -12,42 +13,65 @@
 // over packed read rows (rows: uint8 [nb, 150, C], C = 6 or 7; out: fp32
 // [A, 36, 64] NWC, zero-filled by the caller).
 //
-// What bounds it: about 10.1 MFLOP per row (5.08 M fp32 multiply-adds for
-// C = 6, summed over the 18 convs) against about 0.9 KB of uint8 input per
-// row, i.e. ~11,000 FLOP per byte read: far above the card's fp32 ridge
-// (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/byte on H100 SXM), so the kernel is
-// bound by fp32 FMA throughput, not by memory bandwidth.
+// What bounds it: 5.08 M multiply-adds per row for C = 6 (10.15 MFLOP, the
+// 18 convs) against ~0.9 KB of uint8 input, so operations bound it, not
+// bytes.  For the kernel phase of chip_smoke.py (38,399 computed rows,
+// 389.8 GFLOP) on an H100 SXM: 5.82 ms at the fp32 FMA peak (67 TFLOP/s);
+// 2.36 ms for the three TF32 passes this design issues at the tensor-core
+// peak (3 x 389.8 GFLOP at 495 TFLOP/s; 3.09 ms on the PCIe card).
 //
-// Design, simple and right first:
-//   * one 256-thread block per read row; the row is converted to fp32 into
-//     shared memory;
-//   * the 18 convs run layer after layer on channel-major shared-memory
-//     buffers (three of 32 x 148 fp32, 56.8 KB, above the 48 KB default, so
-//     the launch raises the dynamic shared-memory limit); padded convs read
-//     zeroed halo columns, so no bounds tests sit in the inner loop;
-//   * ReLU, the max-pool, the residual adds and the stride-2 shortcut are
-//     fused into the conv loops' epilogues;
-//   * a thread computes 4 neighbouring positions of one output channel;
-//     consecutive threads take consecutive output channels, so weight loads
-//     (stored transposed, [K*Ci][Co]) are coalesced and activation loads are
-//     shared-memory broadcasts;
-//   * the 464 KB of folded weights are read through the read-only cache and
-//     stay resident in L2;
-//   * the epilogue adds row_valid * frame into out[row_allele] with fp32
-//     atomicAdd.  Rows with row_valid == 0 or row_allele outside [0, A) are
-//     skipped whole: padding rows are dropped, and a masked row would add
-//     exactly 0 * finite frame.
+// Accuracy: every product is 3xTF32.  Each operand x splits into
+// big = tf32_rna(x) and small = tf32_rna(x - big) (cvt.rna.tf32.f32), and a
+// k-step accumulates small*big + big*small + big*big in fp32, small terms
+// first; the dropped small*small term is ~2^-22 relative.  Weights are split
+// once at fold time (ops/read_conv.py), activations in registers as their
+// fragments load.  The fp32 accumulation order differs from cuDNN's and the
+// atomics' order varies between runs, so the kernel is held to rtol 1e-4 /
+// atol 1e-3 against the plain PyTorch version (read_conv_reduce_reference),
+// the tolerance hello_tpu holds its Pallas kernel to
+// (tests/test_pallas_ops.py).
 //
-// Determinism and tolerance: the atomics make the order of each allele's sum
-// vary from run to run, so results are not bitwise reproducible; together
-// with a conv summation order unlike cuDNN's, the kernel is held to
-// rtol 1e-4 / atol 1e-3 against the plain PyTorch version
-// (read_conv_reduce_reference) - the tolerance hello_tpu holds its Pallas
-// kernel to (tests/test_pallas_ops.py).
+// Design, and what it does about the SIMT kernel it replaces:
+//   * Tensor cores instead of FMA pipes.  Every conv, stem conv 1 included
+//     (its K = 3C is zero-padded to 24 at fold time), is an implicit GEMM
+//     M = positions x N = Co x K = taps * Ci on
+//     mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.  A is the im2col
+//     view of a shared-memory activation buffer, addressed in place (the
+//     stride-2 conv and the 1x1 stride-2 shortcut are the same product with
+//     another A address); B is the fold's W^T in fragment order, one 16-byte
+//     load per lane per (k-step, n-tile) carrying big and small.
+//   * Load issue.  A warp computes 5 m16 tiles x 2 n8 tiles: one A fragment
+//     (4 shared loads) feeds 6 mma, one B load feeds 15, where the SIMT
+//     kernel spent 9 loads on 12 FMAs.
+//   * Idle lanes.  All M x N tiles of a conv are cut into exactly 8 warp
+//     items (16 for stem conv 3), so every warp has the same work between
+//     barriers; the only waste is M rounded up to 16 (5-7%) and the
+//     per-row halo positions computed and not stored.
+//   * Rows per block.  kRows = 4 rows are stacked along M: a layer's
+//     positions are one stream r * P + l over the block's rows, each row
+//     with its own halo columns, so M = 150 (RB64) to 598 (stem), weights
+//     are read once per 4 rows and there are 19 barriers per 4 rows.  The
+//     per-row strides are chosen so every conv's A address is linear in the
+//     stream index (32-channel rows 76 = 2 x 38, the 64-channel stride).
+//   * Bank conflicts.  Channel-major buffers [ci][position] with a leading
+//     dimension = 8 (mod 32), so the 32 lanes of a fragment load hit 32
+//     banks (2-way for the stride-2 reads and stem conv 1's
+//     position-major input).  Halo columns stay zero, so the inner loop has
+//     no bounds tests.
+//   * Fused epilogues on the accumulators: bias (the accumulators' initial
+//     value), ReLU, residual add, the linear 1x1 shortcut; then fp32
+//     atomicAdd of row_valid * frame into out[row_allele] for each valid
+//     row.  Rows with row_valid == 0 or row_allele outside [0, A) add
+//     nothing; a block whose rows are all such (the wire's tail of padding
+//     rows) returns before any work.
+//   * Occupancy: 128,000 bytes of shared memory per block, so one 256-thread
+//     block per SM; latency is hidden by the 10 independent accumulator
+//     tiles of each warp rather than by more warps.
 //
-// What this simple design leaves on the table: the tensor cores (each conv
-// is an im2col product that TF32 or bf16 wgmma could take), and weight reuse
-// across rows (every block rereads all weights from L1/L2 for its one row).
+// What it still leaves: B fragments come from the read-only cache (L1/L2),
+// not from shared memory staged with cp.async; wgmma (warpgroup tiles with
+// descriptors), TMA and persistent blocks that overlap one block's
+// epilogue with the next block's loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,202 +79,346 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStrip = 4;            // output positions per thread item
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;             // read rows per block, stacked along M
+constexpr int kWM = 5;               // m16 tiles per warp item
+constexpr int kWN = 2;               // n8 tiles per warp item
+
 constexpr int kLIn = 150;
-constexpr int kL1 = 148;             // after stem conv 1
-constexpr int kL2 = 146;             // after stem conv 2
-constexpr int kL3 = 144;             // after stem conv 3
 constexpr int kLPool = 71;           // (144 - 3) / 2 + 1
 constexpr int kLOut = 36;            // (71 + 2 - 3) / 2 + 1
-constexpr int kLd32 = kLPool + 2;    // 32-channel rows with halo columns
-constexpr int kLd64 = kLOut + 2;     // 64-channel rows with halo columns
 constexpr int kCOut = 64;
-constexpr int kBuf = 32 * 148;       // floats per buffer (largest: 32 x 144)
-constexpr size_t kSmemBytes = 3 * kBuf * sizeof(float);
+constexpr int kP32 = 76;             // row stride, 32 channels: halo, 71, halo, 3 spare
+constexpr int kP64 = 38;             // row stride, 64 channels: halo, 36, halo
+constexpr int kKPad1 = 24;           // stem conv 1's K = 3C, zero-padded
 
-enum Epilogue { kStore = 0, kAddResidual = 1, kAddShortcut = 2 };
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+// smallest n' >= n with n' = 8 (mod 32): bank-conflict-free A fragments
+__host__ __device__ constexpr int ld8(int n) { return n + ((8 - n) % 32 + 32) % 32; }
+// m16 tiles of a conv whose outputs are q = r * pq + l, l < lo, r < kRows
+__host__ __device__ constexpr int mtiles(int pq, int lo) { return cdiv((kRows - 1) * pq + lo, 16); }
 
-// One conv layer over shared memory.  Output (co, l), tap k reads
-// in[ci * in_ld + l * S + k]: callers pass `in` at the first tap of output 0,
-// which for a pad-1 conv is the left halo column.  Writes
-// out[co * out_ld + l] (kStore: relu; kAddResidual: += relu; kAddShortcut:
-// relu + the 1x1 stride-2 shortcut conv over sc_in, which has no ReLU).
-// A strip may run past lo_n: those reads stay inside the buffer (the next
-// row or its halo) and their results are never written.
-template <int K, int S, int EPI>
-__device__ __forceinline__ void conv_layer(
-    const float* in, int in_ld, int ci_n,
-    float* out, int out_ld, int co_n, int lo_n,
-    const float* __restrict__ w, const float* __restrict__ bias,
-    const float* sc_in = nullptr, int sc_ld = 0, int sc_ci = 0,
-    const float* __restrict__ sc_w = nullptr,
-    const float* __restrict__ sc_b = nullptr) {
-  constexpr int kSpan = (kStrip - 1) * S + K;
-  const int items = ((lo_n + kStrip - 1) / kStrip) * co_n;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int co = it % co_n;
-    const int l0 = (it / co_n) * kStrip;
-    float acc[kStrip];
-    const float b = __ldg(bias + co);
+constexpr int kMT1 = mtiles(kLIn, 148);
+constexpr int kMT2 = mtiles(kLIn, 146);
+constexpr int kMT3 = mtiles(kLIn, 144);
+constexpr int kMT32 = mtiles(kP32, kLPool);
+constexpr int kMT64 = mtiles(kP64, kLOut);
+// Leading dimensions: the last tile's reads (+ taps) stay inside a channel's
+// row.  Positions past the block's rows hold stale values; only outputs that
+// are never stored read them (an mma output row depends on its A row only).
+constexpr int kLdS = ld8(imax(kMT2, kMT3) * 16 + 2);
+constexpr int kLd32 = ld8(imax(kMT32 * 16 + 2, kMT64 * 32 + 1));
+constexpr int kLd64 = ld8(kMT64 * 16 + 2);
+constexpr int kIn0Pos = kMT1 * 16 + 3;   // stem conv 1 reads (q + 3) * C
+// region 1: input (position-major), stem 2's output, then x32;
+// region 2: stem 1 and 3's outputs, then y32, then y64 | x64
+constexpr int kRegion1 = cdiv(imax(imax(kIn0Pos * 7, 16 * kLdS), 32 * kLd32), 4) * 4;
+constexpr int kRegion2 = imax(imax(32 * kLdS, 32 * kLd32), 2 * 64 * kLd64);
+constexpr int kSmemBytes = (kRegion1 + kRegion2) * static_cast<int>(sizeof(float));
+
+enum Epilogue { kRelu = 0, kReluAdd = 1, kLinear = 2 };
+
+// Geometry of one conv as an implicit GEMM.  A(q, kk) with kk = tap * CI + ci
+// is in[IN_OFF + q * QS + tap * TS + ci * CS]; output (q, co) goes to
+// out[co * OUT_LD + q + OUT_OFF] when q = r * PQ + l with r < kRows, l < LO.
+template <int CI_, int CO_, int TAPS_, int QS_, int TS_, int CS_, int IN_OFF_,
+          int OUT_LD_, int OUT_OFF_, int PQ_, int LO_, int MT_>
+struct Conv {
+  static constexpr int CI = CI_, CO = CO_, TAPS = TAPS_, QS = QS_, TS = TS_,
+                       CS = CS_, IN_OFF = IN_OFF_, OUT_LD = OUT_LD_,
+                       OUT_OFF = OUT_OFF_, PQ = PQ_, LO = LO_, MT = MT_;
+};
+
+// stem conv 1 reads the position-major input: kk = tap * C + ci is one
+// linear offset, so it is a single "tap" of K = 24 (weights zero-padded)
+template <int C>
+using Stem1 = Conv<kKPad1, 16, 1, C, 0, 1, 0, kLdS, 0, kLIn, 148, kMT1>;
+using Stem2 = Conv<16, 16, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 146, kMT2>;
+using Stem3 = Conv<16, 32, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 144, kMT3>;
+using RB32 = Conv<32, 32, 3, 1, 1, kLd32, 0, kLd32, 1, kP32, kLPool, kMT32>;
+using Down = Conv<32, 64, 3, 2, 1, kLd32, 0, kLd64, 1, kP64, kLOut, kMT64>;
+using Short = Conv<32, 64, 1, 2, 0, kLd32, 1, kLd64, 1, kP64, kLOut, kMT64>;
+using RB64 = Conv<64, 64, 3, 1, 1, kLd64, 0, kLd64, 1, kP64, kLOut, kMT64>;
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One conv over shared memory on the tensor cores.  w: the conv's B
+// fragments, [K/8][CO/8][32 lanes] x float4 (b0 big, b1 big, b0 small,
+// b1 small); bias: [CO].  Warp items of kWM m-tiles x kWN n-tiles go round
+// the block's warps.
+template <class G, int EPI>
+__device__ __forceinline__ void mma_conv(const float* in, float* out,
+                                         const float* __restrict__ w,
+                                         const float* __restrict__ bias) {
+  constexpr int NT = G::CO / 8;
+  constexpr int CB = G::CI / 8;        // k-steps per tap
+  constexpr int NI = NT / kWN;
+  constexpr int ITEMS = cdiv(G::MT, kWM) * NI;
+  static_assert(G::CI % 8 == 0 && NT % kWN == 0, "conv shape");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float4* wf = reinterpret_cast<const float4*>(w);
+
+  for (int item = threadIdx.x >> 5; item < ITEMS; item += kWarps) {
+    const int mt0 = (item / NI) * kWM;
+    const int nt0 = (item % NI) * kWN;
+    float acc[kWM][kWN][4];
 #pragma unroll
-    for (int j = 0; j < kStrip; ++j) acc[j] = b;
-    const float* x = in + l0 * S;
-    for (int ci = 0; ci < ci_n; ++ci) {
-      float xv[kSpan];
+    for (int j = 0; j < kWN; ++j) {
+      const float b0 = __ldg(bias + (nt0 + j) * 8 + 2 * t);
+      const float b1 = __ldg(bias + (nt0 + j) * 8 + 2 * t + 1);
 #pragma unroll
-      for (int t = 0; t < kSpan; ++t) xv[t] = x[ci * in_ld + t];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float wk = __ldg(w + (k * ci_n + ci) * co_n + co);
-#pragma unroll
-        for (int j = 0; j < kStrip; ++j) acc[j] = fmaf(wk, xv[j * S + k], acc[j]);
+      for (int i = 0; i < kWM; ++i) {
+        acc[i][j][0] = b0;
+        acc[i][j][1] = b1;
+        acc[i][j][2] = b0;
+        acc[i][j][3] = b1;
       }
     }
-    float sc[kStrip];
-    if (EPI == kAddShortcut) {
-      const float sb = __ldg(sc_b + co);
+    const float* a_lane = in + G::IN_OFF + t * G::CS + (mt0 * 16 + g) * G::QS;
+    const float4* b_lane = wf + nt0 * 32 + lane;
+#pragma unroll 1
+    for (int tap = 0; tap < G::TAPS; ++tap) {
+      const float* a_tap = a_lane + tap * G::TS;
+      const float4* b_tap = b_lane + tap * CB * NT * 32;
 #pragma unroll
-      for (int j = 0; j < kStrip; ++j) sc[j] = sb;
-      const float* xs = sc_in + 2 * l0;
-      for (int ci = 0; ci < sc_ci; ++ci) {
-        const float wk = __ldg(sc_w + ci * co_n + co);
+      for (int cb = 0; cb < CB; ++cb) {
+        uint32_t bb[kWN][2], bs[kWN][2];
 #pragma unroll
-        for (int j = 0; j < kStrip; ++j) sc[j] = fmaf(wk, xs[ci * sc_ld + 2 * j], sc[j]);
+        for (int j = 0; j < kWN; ++j) {
+          const float4 v = __ldg(b_tap + (cb * NT + j) * 32);
+          bb[j][0] = __float_as_uint(v.x);
+          bb[j][1] = __float_as_uint(v.y);
+          bs[j][0] = __float_as_uint(v.z);
+          bs[j][1] = __float_as_uint(v.w);
+        }
+#pragma unroll
+        for (int i = 0; i < kWM; ++i) {
+          if (mt0 + i < G::MT) {
+            const float* ap = a_tap + cb * 8 * G::CS + i * 16 * G::QS;
+            const float x[4] = {ap[0], ap[8 * G::QS], ap[4 * G::CS],
+                                ap[4 * G::CS + 8 * G::QS]};
+            uint32_t big[4], small[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              big[e] = tf32_rna(x[e]);
+              small[e] = tf32_rna(x[e] - __uint_as_float(big[e]));
+            }
+#pragma unroll
+            for (int j = 0; j < kWN; ++j) {
+              mma_tf32(acc[i][j], small, bb[j][0], bb[j][1]);
+              mma_tf32(acc[i][j], big, bs[j][0], bs[j][1]);
+              mma_tf32(acc[i][j], big, bb[j][0], bb[j][1]);
+            }
+          }
+        }
       }
     }
+    // accumulator (i, j, e) holds output q = tile row g (+8), co = 2t (+1)
 #pragma unroll
-    for (int j = 0; j < kStrip; ++j) {
-      const int l = l0 + j;
-      if (l < lo_n) {
-        const float v = fmaxf(acc[j], 0.0f);
-        float* o = out + co * out_ld + l;
-        if (EPI == kStore) {
-          *o = v;
-        } else if (EPI == kAddResidual) {
-          *o = *o + v;
-        } else {
-          *o = v + sc[j];
+    for (int i = 0; i < kWM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kWN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = (mt0 + i) * 16 + g + (e >> 1) * 8;
+          const int co = (nt0 + j) * 8 + 2 * t + (e & 1);
+          const int r = q / G::PQ;
+          const int l = q - r * G::PQ;
+          if (r < kRows && l < G::LO) {
+            float* o = out + co * G::OUT_LD + q + G::OUT_OFF;
+            const float v = acc[i][j][e];
+            if (EPI == kRelu) {
+              *o = fmaxf(v, 0.0f);
+            } else if (EPI == kReluAdd) {
+              *o += fmaxf(v, 0.0f);
+            } else {
+              *o = v;
+            }
+          }
         }
       }
     }
   }
 }
 
-// Next conv's weights in the flat buffer: W^T [K*Ci][Co], then b [Co].
-__device__ __forceinline__ void take(const float*& p, int k, int ci, int co,
+// Next conv in the flat buffer: 2 * K * Co fragment floats, then b [Co].
+__device__ __forceinline__ void take(const float*& p, int k, int co,
                                      const float*& w, const float*& b) {
   w = p;
-  p += k * ci * co;
+  p += 2 * k * co;
   b = p;
   p += co;
 }
 
-__global__ void __launch_bounds__(kThreads, 2) read_conv_reduce_kernel(
-    const uint8_t* __restrict__ rows, int channels,
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
+    const uint8_t* __restrict__ rows, int nb,
     const int32_t* __restrict__ row_allele,
     const float* __restrict__ row_valid,
     const float* __restrict__ weights, int num_alleles,
     float* __restrict__ out) {
-  const int r = blockIdx.x;
-  const int a = row_allele[r];
-  const float valid = row_valid[r];
-  if (a < 0 || a >= num_alleles || valid == 0.0f) return;  // whole block
+  const int r0 = blockIdx.x * kRows;
+  int allele[kRows];
+  float valid[kRows];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    allele[r] = -1;
+    valid[r] = 0.0f;
+    if (r0 + r < nb) {
+      const int a = row_allele[r0 + r];
+      const float v = row_valid[r0 + r];
+      if (a >= 0 && a < num_alleles && v != 0.0f) {
+        allele[r] = a;
+        valid[r] = v;
+        any = true;
+      }
+    }
+  }
+  if (!any) return;  // whole block: padding or masked rows only
 
   extern __shared__ float smem[];
-  float* b0 = smem;
-  float* b1 = smem + kBuf;
-  float* b2 = smem + 2 * kBuf;
+  float* reg1 = smem;
+  float* reg2 = smem + kRegion1;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const float* p = weights;
   const float* w;
   const float* b;
 
-  // uint8 [150, C] -> fp32 channel-major [C][150] in b0
-  const uint8_t* src = rows + static_cast<size_t>(r) * kLIn * channels;
-  for (int i = tid; i < kLIn * channels; i += nt) {
-    b0[(i % channels) * kLIn + i / channels] = static_cast<float>(src[i]);
+  // uint8 rows [kRows * 150][C] -> fp32, position-major, in region 1; rows
+  // past nb and the tail that stem conv 1's padded K reads are zero
+  const int n_in = min(kRows, nb - r0) * kLIn * C;
+  const uint8_t* src = rows + static_cast<size_t>(r0) * kLIn * C;
+  for (int i = tid; i < kIn0Pos * C; i += kThreads) {
+    reg1[i] = i < n_in ? static_cast<float>(src[i]) : 0.0f;
   }
   __syncthreads();
 
-  // stem: three valid k3 convs with ReLU
-  take(p, 3, channels, 16, w, b);
-  conv_layer<3, 1, kStore>(b0, kLIn, channels, b1, kL1, 16, kL1, w, b);
+  // stem: three valid k3 convs with ReLU, positions q = r * 150 + l
+  take(p, kKPad1, 16, w, b);
+  mma_conv<Stem1<C>, kRelu>(reg1, reg2, w, b);
   __syncthreads();
-  take(p, 3, 16, 16, w, b);
-  conv_layer<3, 1, kStore>(b1, kL1, 16, b0, kL2, 16, kL2, w, b);
+  take(p, 48, 16, w, b);
+  mma_conv<Stem2, kRelu>(reg2, reg1, w, b);
   __syncthreads();
-  take(p, 3, 16, 32, w, b);
-  conv_layer<3, 1, kStore>(b0, kL2, 16, b1, kL3, 32, kL3, w, b);
+  take(p, 48, 32, w, b);
+  mma_conv<Stem3, kRelu>(reg1, reg2, w, b);
   __syncthreads();
 
-  // max-pool k3 s2 into x = b2 (32 x 71 with halo columns); zero the halo
-  // columns of y = b0 in the same pass
-  for (int i = tid; i < 32 * kLd32; i += nt) {
-    const int c = i / kLd32;
-    const int q = i % kLd32;
+  // max-pool k3 s2: 32 x 144 per row -> x32 rows of [halo, 71, halo, 3 spare]
+  float* x32 = reg1;
+  float* y32 = reg2;
+  for (int i = tid; i < 32 * kRows * kP32; i += kThreads) {
+    const int c = i / (kRows * kP32);
+    const int rem = i - c * (kRows * kP32);
+    const int r = rem / kP32;
+    const int col = rem - r * kP32;
     float v = 0.0f;
-    if (q >= 1 && q <= kLPool) {
-      const float* s = b1 + c * kL3 + 2 * (q - 1);
+    if (col >= 1 && col <= kLPool) {
+      const float* s = reg2 + c * kLdS + r * kLIn + 2 * (col - 1);
       v = fmaxf(fmaxf(s[0], s[1]), s[2]);
-    } else {
-      b0[i] = 0.0f;
     }
-    b2[i] = v;
+    x32[c * kLd32 + rem] = v;
   }
   __syncthreads();
 
+  // y32's halo and spare columns (cols 0, 72..75), in the phase of the first
+  // conv, which writes only data columns
+  for (int i = tid; i < 32 * kRows * 5; i += kThreads) {
+    const int c = i / (kRows * 5);
+    const int rem = i - c * (kRows * 5);
+    const int r = rem / 5;
+    const int h = rem - r * 5;
+    y32[c * kLd32 + r * kP32 + (h == 0 ? 0 : kLPool + h)] = 0.0f;
+  }
   // 3 residual blocks at 32 channels: x += relu(conv(relu(conv(x))))
   for (int blk = 0; blk < 3; ++blk) {
-    take(p, 3, 32, 32, w, b);
-    conv_layer<3, 1, kStore>(b2, kLd32, 32, b0 + 1, kLd32, 32, kLPool, w, b);
+    take(p, 96, 32, w, b);
+    mma_conv<RB32, kRelu>(x32, y32, w, b);
     __syncthreads();
-    take(p, 3, 32, 32, w, b);
-    conv_layer<3, 1, kAddResidual>(b0, kLd32, 32, b2 + 1, kLd32, 32, kLPool, w, b);
+    take(p, 96, 32, w, b);
+    mma_conv<RB32, kReluAdd>(y32, x32, w, b);
     __syncthreads();
   }
 
-  // halo columns of the 64-channel buffers y = b0 and x' = b1
-  for (int i = tid; i < kCOut; i += nt) {
-    b0[i * kLd64] = 0.0f;
-    b0[i * kLd64 + kLd64 - 1] = 0.0f;
-    b1[i * kLd64] = 0.0f;
-    b1[i * kLd64 + kLd64 - 1] = 0.0f;
-  }
-  __syncthreads();
-
-  // stride-2 residual block 32 -> 64: y = relu(conv_s2(x));
-  // x' = relu(conv(y)) + conv1x1_s2(x)
-  take(p, 3, 32, 64, w, b);
-  conv_layer<3, 2, kStore>(b2, kLd32, 32, b0 + 1, kLd64, 64, kLOut, w, b);
-  __syncthreads();
+  // stride-2 residual block 32 -> 64: y = relu(conv_s2(x)), x' = conv1x1_s2(x)
+  // in one phase (with the halo columns of both), then x' += relu(conv(y))
+  float* y64 = reg2;
+  float* x64 = reg2 + 64 * kLd64;
+  take(p, 96, 64, w, b);
   const float* w2;
-  const float* bias2;
-  take(p, 3, 64, 64, w2, bias2);
+  const float* b2;
+  take(p, 192, 64, w2, b2);
   const float* ws;
   const float* bs;
-  take(p, 1, 32, 64, ws, bs);
-  conv_layer<3, 1, kAddShortcut>(b0, kLd64, 64, b1 + 1, kLd64, 64, kLOut,
-                                 w2, bias2, b2 + 1, kLd32, 32, ws, bs);
+  take(p, 32, 64, ws, bs);
+  for (int i = tid; i < 64 * kRows * 2; i += kThreads) {
+    const int c = i / (kRows * 2);
+    const int rem = i - c * (kRows * 2);
+    const int col = (rem >> 1) * kP64 + (rem & 1) * (kP64 - 1);
+    y64[c * kLd64 + col] = 0.0f;
+    x64[c * kLd64 + col] = 0.0f;
+  }
+  mma_conv<Down, kRelu>(x32, y64, w, b);
+  mma_conv<Short, kLinear>(x32, x64, ws, bs);
+  __syncthreads();
+  mma_conv<RB64, kReluAdd>(y64, x64, w2, b2);
   __syncthreads();
 
-  // 3 residual blocks at 64 channels, x in b1
+  // 3 residual blocks at 64 channels, x in x64
   for (int blk = 0; blk < 3; ++blk) {
-    take(p, 3, 64, 64, w, b);
-    conv_layer<3, 1, kStore>(b1, kLd64, 64, b0 + 1, kLd64, 64, kLOut, w, b);
+    take(p, 192, 64, w, b);
+    mma_conv<RB64, kRelu>(x64, y64, w, b);
     __syncthreads();
-    take(p, 3, 64, 64, w, b);
-    conv_layer<3, 1, kAddResidual>(b0, kLd64, 64, b1 + 1, kLd64, 64, kLOut, w, b);
+    take(p, 192, 64, w, b);
+    mma_conv<RB64, kReluAdd>(y64, x64, w, b);
     __syncthreads();
   }
 
-  // out[a, l, c] += valid * x[c, l]
-  float* o = out + static_cast<size_t>(a) * kLOut * kCOut;
-  for (int i = tid; i < kLOut * kCOut; i += nt) {
-    const int l = i / kCOut;
-    const int c = i % kCOut;
-    atomicAdd(o + i, valid * b1[c * kLd64 + 1 + l]);
+  // out[a, l, c] += valid * x[c, l] for each valid row
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (allele[r] < 0) continue;
+    float* o = out + static_cast<size_t>(allele[r]) * kLOut * kCOut;
+    const float* x = x64 + r * kP64 + 1;
+    for (int i = tid; i < kLOut * kCOut; i += kThreads) {
+      const int l = i / kCOut;
+      const int c = i - l * kCOut;
+      atomicAdd(o + i, valid[r] * x[c * kLd64 + l]);
+    }
   }
+}
+
+template <int C>
+cudaError_t launch(const void* rows, int nb, const void* row_allele,
+                   const void* row_valid, const void* weights,
+                   int num_alleles, void* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      read_conv_reduce_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return err;
+  read_conv_reduce_kernel<C><<<cdiv(nb, kRows), kThreads, kSmemBytes, stream>>>(
+      static_cast<const uint8_t*>(rows), nb,
+      static_cast<const int32_t*>(row_allele),
+      static_cast<const float*>(row_valid),
+      static_cast<const float*>(weights), num_alleles,
+      static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -265,16 +433,26 @@ extern "C" int read_conv_reduce_f32(const void* rows, int nb, int channels,
                                     void* out, void* stream) {
   if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
   if (nb <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      channels == 6
+          ? launch<6>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s)
+          : launch<7>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s));
+}
+
+// The launch's shape on this device: read rows per block, dynamic shared
+// memory per block, threads per block and resident blocks per SM.
+extern "C" int read_conv_reduce_info(int channels, int* rows_per_block,
+                                     int* smem_bytes, int* threads,
+                                     int* blocks_per_sm) {
+  if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = channels == 6 ? &read_conv_reduce_kernel<6> : &read_conv_reduce_kernel<7>;
   cudaError_t err = cudaFuncSetAttribute(
-      read_conv_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  read_conv_reduce_kernel<<<nb, kThreads, kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(rows), channels,
-      static_cast<const int32_t*>(row_allele),
-      static_cast<const float*>(row_valid),
-      static_cast<const float*>(weights), num_alleles,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  *rows_per_block = kRows;
+  *smem_bytes = kSmemBytes;
+  *threads = kThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kThreads, kSmemBytes));
 }

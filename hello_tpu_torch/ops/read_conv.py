@@ -8,7 +8,8 @@ allele slot.  ``read_conv_reduce`` computes
     out[a] = sum over rows r with row_allele[r] == a of
              row_valid[r] * read_convolver(rows[r])          -> [A, 36, 64]
 
-in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a, built with
+in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: 3xTF32
+``mma.sync`` tensor-core convs over 4 read rows per block, built with
 ``nvcc`` into ``ops/build/`` at first use and loaded with ctypes).  It
 replaces the two Pallas TPU kernels of hello_tpu's ops/read_conv.py
 (``_stem_kernel`` and ``_tail_kernel``) and the reduction after them, and
@@ -22,9 +23,11 @@ the kernel or raises.
 
 Weights are folded once per parameter set (``fold_read_conv_weights``): the
 weight norm is applied and each conv becomes ``W[Co, K*Ci]`` (k-major, as
-hello_tpu's ``extract_read_conv_weights``) plus ``b[Co]``; the kernel reads
-one flat buffer of ``W^T [K*Ci, Co]`` and ``b`` per conv.  The topology gate
-raises for a read convolver the kernel does not implement.
+hello_tpu's ``extract_read_conv_weights``) plus ``b[Co]``.  The kernel reads
+one flat buffer holding, per conv, ``W^T`` split into TF32 ``big`` and
+``small`` parts in mma.sync B-fragment order (``pack_conv``), then ``b``.
+The topology gate raises for a read convolver the kernel does not
+implement.
 """
 
 from __future__ import annotations
@@ -150,16 +153,49 @@ def check_read_convolver(seq: L.Sequential):
 @dataclasses.dataclass(frozen=True)
 class FoldedReadConv:
     """Folded read-convolver weights: ``convs`` holds the 18 ``(W [Co, K*Ci],
-    b [Co])`` pairs; ``flat`` is the kernel's buffer (per conv ``W^T`` then
-    ``b``, concatenated)."""
+    b [Co])`` pairs; ``flat`` is the kernel's buffer (per conv the
+    ``pack_conv`` fragments, then ``b``, concatenated)."""
     convs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     flat: torch.Tensor
     in_channels: int
 
 
+def padded_k(kc: int) -> int:
+    """K of a conv as the kernel's m16n8k8 products take it: a multiple of 8
+    (stem conv 1's 3*C = 18 or 21 becomes 24; the others already are)."""
+    return -(-kc // 8) * 8
+
+
 def num_weight_floats(in_channels: int) -> int:
+    """Floats of the kernel's buffer: per conv, big and small B fragments
+    (2 * Co * padded K) and the bias."""
     shapes = [(16, 3 * in_channels)] + _EXPECTED_TAIL_SHAPES
-    return sum(co * kc + co for co, kc in shapes)
+    return sum(2 * co * padded_k(kc) + co for co, kc in shapes)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value, ties away from zero (PTX
+    ``cvt.rna.tf32.f32``): the low 13 mantissa bits become 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_conv(w: torch.Tensor) -> torch.Tensor:
+    """``W [Co, K*Ci]`` -> the kernel's B fragments of ``W^T``, flat.
+
+    K is zero-padded to ``padded_k``, W splits into ``big = tf32(W)`` and
+    ``small = tf32(W - big)``, and the layout is [K/8][Co/8][lane 32][4]
+    with, for lane = 4 g + t of the mma.sync.m16n8k8 TF32 B fragment,
+    (big W[8n + g, 8k + t], big W[8n + g, 8k + t + 4], small ..., small ...):
+    one 16-byte load per lane per (k-step, n-tile)."""
+    co, kc = w.shape
+    kp = padded_k(kc)
+    w = F.pad(w.float(), (0, kp - kc))
+    big = tf32_round(w)
+    small = tf32_round(w - big)
+    # [n, g, k, h, t] -> [k, n, g, t, h]: K index 8k + 4h + t, Co index 8n + g
+    frag = lambda m: m.reshape(co // 8, 8, kp // 8, 2, 4).permute(2, 0, 1, 4, 3)
+    return torch.stack([frag(big), frag(small)], dim=-2).reshape(-1)
 
 
 @torch.no_grad()
@@ -170,7 +206,7 @@ def fold_read_conv_weights(seq: L.Sequential) -> FoldedReadConv:
     ws = [t.detach().float() for t in extract_read_conv_weights(seq)]
     convs = tuple(zip(ws[0::2], ws[1::2]))
     flat = torch.cat([t for w, b in convs
-                      for t in (w.t().reshape(-1), b)]).contiguous()
+                      for t in (pack_conv(w), b)]).contiguous()
     return FoldedReadConv(convs, flat, in_channels=convs[0][0].shape[1] // 3)
 
 
@@ -272,8 +308,23 @@ def _library():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p]
             lib.read_conv_reduce_f32.restype = ctypes.c_int
+            lib.read_conv_reduce_info.argtypes = [
+                ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+            lib.read_conv_reduce_info.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def kernel_info(channels: int) -> dict:
+    """The launch's shape on the current card: read rows per block, dynamic
+    shared memory and threads per block, resident blocks per SM."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = _library().read_conv_reduce_info(channels,
+                                           *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"read_conv_reduce_info failed: cudaError {err}")
+    keys = ("rows_per_block", "smem_bytes", "threads", "blocks_per_sm")
+    return dict(zip(keys, (v.value for v in vals)))
 
 
 def _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles):
@@ -291,9 +342,12 @@ def _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles):
         raise TypeError(f"row_valid must be float32 [{nb}], got "
                         f"{row_valid.dtype} {tuple(row_valid.shape)}")
     flat = folded.flat
-    if flat.dtype != torch.float32 or flat.dim() != 1 \
+    if folded.in_channels != rows.shape[2] or flat.dtype != torch.float32 \
+            or flat.dim() != 1 \
             or flat.numel() != num_weight_floats(rows.shape[2]):
         raise ValueError("folded weights do not match the rows' channel count")
+    if flat.data_ptr() % 16:
+        raise ValueError("folded weights must be 16-byte aligned")
     for name, t in (("row_allele", row_allele), ("row_valid", row_valid),
                     ("weights", flat)):
         if t.device != dev:
