@@ -19,59 +19,68 @@
 // 389.8 GFLOP) on an H100 SXM: 5.82 ms at the fp32 FMA peak (67 TFLOP/s);
 // 2.36 ms for the three TF32 passes this design issues at the tensor-core
 // peak (3 x 389.8 GFLOP at 495 TFLOP/s; 3.09 ms on the PCIe card).
+// mma.sync reaches about half of that peak on the card; wgmma is the way to
+// the rest.
 //
 // Accuracy: every product is 3xTF32.  Each operand x splits into
-// big = tf32_rna(x) and small = tf32_rna(x - big) (cvt.rna.tf32.f32), and a
-// k-step accumulates small*big + big*small + big*big in fp32, small terms
-// first; the dropped small*small term is ~2^-22 relative.  Weights are split
-// once at fold time (ops/read_conv.py), activations in registers as their
-// fragments load.  The fp32 accumulation order differs from cuDNN's and the
-// atomics' order varies between runs, so the kernel is held to rtol 1e-4 /
-// atol 1e-3 against the plain PyTorch version (read_conv_reduce_reference),
-// the tolerance hello_tpu holds its Pallas kernel to
-// (tests/test_pallas_ops.py).
+// big = tf32(x) and small = tf32(x - big), both rounded to nearest with
+// ties away (cvt.rna's rounding), and a k-step accumulates
+// small*big + big*small + big*big in fp32, small terms first; the dropped
+// small*small term is ~2^-22 relative.  Weights are split once at fold time
+// (ops/read_conv.py), activations in registers as their fragments load.
+// The fp32 accumulation order differs from cuDNN's and the atomics' order
+// varies between runs, so the kernel is held to rtol 1e-4 / atol 1e-3
+// against the plain PyTorch version (read_conv_reduce_reference), the
+// tolerance hello_tpu holds its Pallas kernel to (tests/test_pallas_ops.py).
 //
 // Design, and what it does about the SIMT kernel it replaces:
-//   * Tensor cores instead of FMA pipes.  Every conv, stem conv 1 included
-//     (its K = 3C is zero-padded to 24 at fold time), is an implicit GEMM
-//     M = positions x N = Co x K = taps * Ci on
-//     mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.  A is the im2col
-//     view of a shared-memory activation buffer, addressed in place (the
+//   * Tensor cores, not FMA pipes.  Every conv, stem conv 1 included (its
+//     K = 3C zero-padded to 24 at fold time), is an implicit GEMM
+//     out^T [Co][positions] = W [Co][taps * Ci] x im2col(in) on
+//     mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.  B is the im2col
+//     view of a shared-memory activation buffer addressed in place: the
 //     stride-2 conv and the 1x1 stride-2 shortcut are the same product with
-//     another A address); B is the fold's W^T in fragment order, one 16-byte
-//     load per lane per (k-step, n-tile) carrying big and small.
-//   * Load issue.  A warp computes 5 m16 tiles x 2 n8 tiles: one A fragment
-//     (4 shared loads) feeds 6 mma, one B load feeds 15, where the SIMT
-//     kernel spent 9 loads on 12 FMAs.
-//   * Idle lanes.  All M x N tiles of a conv are cut into exactly 8 warp
-//     items (16 for stem conv 3), so every warp has the same work between
-//     barriers; the only waste is M rounded up to 16 (5-7%) and the
-//     per-row halo positions computed and not stored.
-//   * Rows per block.  kRows = 4 rows are stacked along M: a layer's
+//     another B address.  Weights are A, so their split costs nothing here.
+//   * Load issue.  Per k-step a warp loads 2 m-tiles of A (two 16-byte
+//     shared loads per lane each, big and small) and 5 n-tiles of B (two
+//     4-byte loads per lane each) for 30 mma, where the SIMT kernel spent 9
+//     loads on 12 FMAs.  The n-tile loop has no branch: tile counts are
+//     rounded up to whole warp items and buffers sized so the extra tiles
+//     read in bounds (a guard there cost 40% by splitting the loop into one
+//     basic block per tile).
+//   * Idle lanes.  Each conv is cut into exactly 8 warp items, one per warp,
+//     so warps do equal work between barriers; the waste is positions
+//     rounded up to items and the per-row halo columns, 12% of the mma.
+//   * Rows per block.  kRows = 4 rows are stacked along N: a layer's
 //     positions are one stream r * P + l over the block's rows, each row
-//     with its own halo columns, so M = 150 (RB64) to 598 (stem), weights
-//     are read once per 4 rows and there are 19 barriers per 4 rows.  The
-//     per-row strides are chosen so every conv's A address is linear in the
-//     stream index (32-channel rows 76 = 2 x 38, the 64-channel stride).
+//     with its own halo columns, and the row strides make every conv's B
+//     address linear in the stream index (32-channel rows 76 = 2 x 38, the
+//     64-channel stride).  Weights are read once per 4 rows.
+//   * Weights in shared memory.  Each conv's fragments are staged one tap at
+//     a time with cp.async, double-buffered: while a tap computes, the next
+//     (or the next conv's first) lands.  One barrier per tap publishes the
+//     stage and orders a conv after the previous conv's stores: 54 barriers
+//     per 4 rows, where the SIMT kernel had 18 per row.
 //   * Bank conflicts.  Channel-major buffers [ci][position] with a leading
-//     dimension = 8 (mod 32), so the 32 lanes of a fragment load hit 32
-//     banks (2-way for the stride-2 reads and stem conv 1's
-//     position-major input).  Halo columns stay zero, so the inner loop has
-//     no bounds tests.
-//   * Fused epilogues on the accumulators: bias (the accumulators' initial
-//     value), ReLU, residual add, the linear 1x1 shortcut; then fp32
-//     atomicAdd of row_valid * frame into out[row_allele] for each valid
-//     row.  Rows with row_valid == 0 or row_allele outside [0, A) add
-//     nothing; a block whose rows are all such (the wire's tail of padding
-//     rows) returns before any work.
-//   * Occupancy: 128,000 bytes of shared memory per block, so one 256-thread
-//     block per SM; latency is hidden by the 10 independent accumulator
-//     tiles of each warp rather than by more warps.
+//     dimension = 8 (mod 32), so the 32 lanes of a B-fragment load hit 32
+//     banks (2-way for the stride-2 reads and stem conv 1's position-major
+//     input); A fragments are 512 contiguous bytes per warp load.  Halo
+//     columns stay zero, so the inner loop has no bounds tests.
+//   * Fused epilogues on the accumulators: bias (their initial value),
+//     ReLU, residual add, the linear 1x1 shortcut; then fp32 atomicAdd of
+//     row_valid * frame into out[row_allele] for each valid row.  Rows with
+//     row_valid == 0 or row_allele outside [0, A) add nothing; a block whose
+//     rows are all such (the wire's tail of padding rows) returns at once.
+//   * Occupancy: 193,536 bytes of shared memory (activations 128,000, two
+//     weight stages 65,536), one 256-thread block per SM; latency is hidden
+//     by each warp's 10 independent accumulator tiles and by the cp.async
+//     prefetch, not by more warps.
 //
-// What it still leaves: B fragments come from the read-only cache (L1/L2),
-// not from shared memory staged with cp.async; wgmma (warpgroup tiles with
-// descriptors), TMA and persistent blocks that overlap one block's
-// epilogue with the next block's loads.
+// What it still leaves: wgmma (warpgroup tiles from shared-memory
+// descriptors, twice mma.sync's rate), TMA for the weight stages, and
+// persistent blocks that overlap one block's epilogue and barriers with the
+// next block's products; the activation split still costs about a seventh
+// of the time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,9 +89,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;             // read rows per block, stacked along M
-constexpr int kWM = 5;               // m16 tiles per warp item
-constexpr int kWN = 2;               // n8 tiles per warp item
+constexpr int kRows = 4;             // read rows per block, stacked along N
 
 constexpr int kLIn = 150;
 constexpr int kLPool = 71;           // (144 - 3) / 2 + 1
@@ -90,61 +97,92 @@ constexpr int kLOut = 36;            // (71 + 2 - 3) / 2 + 1
 constexpr int kCOut = 64;
 constexpr int kP32 = 76;             // row stride, 32 channels: halo, 71, halo, 3 spare
 constexpr int kP64 = 38;             // row stride, 64 channels: halo, 36, halo
-constexpr int kKPad1 = 24;           // stem conv 1's K = 3C, zero-padded
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
-// smallest n' >= n with n' = 8 (mod 32): bank-conflict-free A fragments
+// smallest n' >= n with n' = 8 (mod 32): bank-conflict-free B fragments
 __host__ __device__ constexpr int ld8(int n) { return n + ((8 - n) % 32 + 32) % 32; }
-// m16 tiles of a conv whose outputs are q = r * pq + l, l < lo, r < kRows
-__host__ __device__ constexpr int mtiles(int pq, int lo) { return cdiv((kRows - 1) * pq + lo, 16); }
+// n8 tiles of positions a conv computes: its outputs are q = r * pq + l,
+// l < lo, r < kRows, rounded up to whole warp items of wn tiles (the tiles
+// past the outputs are computed and not stored, so the inner loop has no
+// branch)
+__host__ __device__ constexpr int ntiles(int pq, int lo, int wn) {
+  return cdiv(cdiv((kRows - 1) * pq + lo, 8), wn) * wn;
+}
 
-constexpr int kMT1 = mtiles(kLIn, 148);
-constexpr int kMT2 = mtiles(kLIn, 146);
-constexpr int kMT3 = mtiles(kLIn, 144);
-constexpr int kMT32 = mtiles(kP32, kLPool);
-constexpr int kMT64 = mtiles(kP64, kLOut);
+constexpr int kWNStem = 10;          // n8 tiles per warp item: stem convs
+constexpr int kWN = 5;               // the others
+constexpr int kNT1 = ntiles(kLIn, 148, kWNStem);
+constexpr int kNT2 = ntiles(kLIn, 146, kWNStem);
+constexpr int kNT3 = ntiles(kLIn, 144, kWNStem);
+constexpr int kNT32 = ntiles(kP32, kLPool, kWN);
+constexpr int kNT64 = ntiles(kP64, kLOut, kWN);
 // Leading dimensions: the last tile's reads (+ taps) stay inside a channel's
 // row.  Positions past the block's rows hold stale values; only outputs that
-// are never stored read them (an mma output row depends on its A row only).
-constexpr int kLdS = ld8(imax(kMT2, kMT3) * 16 + 2);
-constexpr int kLd32 = ld8(imax(kMT32 * 16 + 2, kMT64 * 32 + 1));
-constexpr int kLd64 = ld8(kMT64 * 16 + 2);
-constexpr int kIn0Pos = kMT1 * 16 + 3;   // stem conv 1 reads (q + 3) * C
+// are never stored read them (an mma output column depends on its B column
+// only).
+constexpr int kLdS = ld8(imax(kNT2, kNT3) * 8 + 2);
+constexpr int kLd32 = ld8(imax(kNT32 * 8 + 2, kNT64 * 16 + 1));
+constexpr int kLd64 = ld8(kNT64 * 8 + 2);
+constexpr int kIn0Pos = kNT1 * 8 + 3;    // stem conv 1 reads (q + 3) * C
 // region 1: input (position-major), stem 2's output, then x32;
-// region 2: stem 1 and 3's outputs, then y32, then y64 | x64
+// region 2: stem 1 and 3's outputs, then y32, then y64 | x64;
+// then two weight stages of one tap each (the largest: 64 x 64 x 2 floats)
 constexpr int kRegion1 = cdiv(imax(imax(kIn0Pos * 7, 16 * kLdS), 32 * kLd32), 4) * 4;
 constexpr int kRegion2 = imax(imax(32 * kLdS, 32 * kLd32), 2 * 64 * kLd64);
-constexpr int kSmemBytes = (kRegion1 + kRegion2) * static_cast<int>(sizeof(float));
+constexpr int kStage = 2 * 64 * 64;
+constexpr int kSmemBytes =
+    (kRegion1 + kRegion2 + 2 * kStage) * static_cast<int>(sizeof(float));
+
+// The 18 convs in the fold's order (stem 1-3, 6 x RB32, the stride-2 conv,
+// its second conv, the 1x1 shortcut, 6 x RB64): K (stem conv 1's 3C
+// zero-padded to 24) and Co.  Each takes 2 K Co fragment floats, then Co
+// bias floats, in the flat buffer.
+__host__ __device__ constexpr int conv_k(int i) {
+  return i == 0 ? 24 : i <= 2 ? 48 : i <= 9 ? 96 : i == 10 ? 192 : i == 11 ? 32 : 192;
+}
+__host__ __device__ constexpr int conv_co(int i) {
+  return i <= 1 ? 16 : i <= 8 ? 32 : 64;
+}
+__host__ __device__ constexpr int conv_taps(int i) { return i == 0 || i == 11 ? 1 : 3; }
+__host__ __device__ constexpr int conv_off(int i) {
+  return i == 0 ? 0 : conv_off(i - 1) + 2 * conv_k(i - 1) * conv_co(i - 1) + conv_co(i - 1);
+}
+// fragment floats of one tap of conv i (the unit of staging)
+__host__ __device__ constexpr int tap_floats(int i) {
+  return i < 0 ? 0 : 2 * conv_k(i) * conv_co(i) / conv_taps(i);
+}
 
 enum Epilogue { kRelu = 0, kReluAdd = 1, kLinear = 2 };
 
-// Geometry of one conv as an implicit GEMM.  A(q, kk) with kk = tap * CI + ci
-// is in[IN_OFF + q * QS + tap * TS + ci * CS]; output (q, co) goes to
-// out[co * OUT_LD + q + OUT_OFF] when q = r * PQ + l with r < kRows, l < LO.
+// Geometry of one conv as an implicit GEMM out^T = W x im2col(in).
+// B(kk, q) with kk = tap * CI + ci is in[IN_OFF + q * QS + tap * TS + ci * CS];
+// output (co, q) goes to out[co * OUT_LD + q + OUT_OFF] when q = r * PQ + l
+// with r < kRows, l < LO; NT n8 tiles of q cover those.
 template <int CI_, int CO_, int TAPS_, int QS_, int TS_, int CS_, int IN_OFF_,
-          int OUT_LD_, int OUT_OFF_, int PQ_, int LO_, int MT_>
+          int OUT_LD_, int OUT_OFF_, int PQ_, int LO_, int NT_>
 struct Conv {
   static constexpr int CI = CI_, CO = CO_, TAPS = TAPS_, QS = QS_, TS = TS_,
                        CS = CS_, IN_OFF = IN_OFF_, OUT_LD = OUT_LD_,
-                       OUT_OFF = OUT_OFF_, PQ = PQ_, LO = LO_, MT = MT_;
+                       OUT_OFF = OUT_OFF_, PQ = PQ_, LO = LO_, NT = NT_;
 };
 
 // stem conv 1 reads the position-major input: kk = tap * C + ci is one
 // linear offset, so it is a single "tap" of K = 24 (weights zero-padded)
 template <int C>
-using Stem1 = Conv<kKPad1, 16, 1, C, 0, 1, 0, kLdS, 0, kLIn, 148, kMT1>;
-using Stem2 = Conv<16, 16, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 146, kMT2>;
-using Stem3 = Conv<16, 32, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 144, kMT3>;
-using RB32 = Conv<32, 32, 3, 1, 1, kLd32, 0, kLd32, 1, kP32, kLPool, kMT32>;
-using Down = Conv<32, 64, 3, 2, 1, kLd32, 0, kLd64, 1, kP64, kLOut, kMT64>;
-using Short = Conv<32, 64, 1, 2, 0, kLd32, 1, kLd64, 1, kP64, kLOut, kMT64>;
-using RB64 = Conv<64, 64, 3, 1, 1, kLd64, 0, kLd64, 1, kP64, kLOut, kMT64>;
+using Stem1 = Conv<24, 16, 1, C, 0, 1, 0, kLdS, 0, kLIn, 148, kNT1>;
+using Stem2 = Conv<16, 16, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 146, kNT2>;
+using Stem3 = Conv<16, 32, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 144, kNT3>;
+using RB32 = Conv<32, 32, 3, 1, 1, kLd32, 0, kLd32, 1, kP32, kLPool, kNT32>;
+using Down = Conv<32, 64, 3, 2, 1, kLd32, 0, kLd64, 1, kP64, kLOut, kNT64>;
+using Short = Conv<32, 64, 1, 2, 0, kLd32, 1, kLd64, 1, kP64, kLOut, kNT64>;
+using RB64 = Conv<64, 64, 3, 1, 1, kLd64, 0, kLd64, 1, kP64, kLOut, kNT64>;
 
+// fp32 -> TF32 bits, round to nearest with ties away from zero: what
+// cvt.rna.tf32.f32 gives for finite inputs, in two integer ops (the cvt
+// compiles to a longer sequence that also screens NaN)
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -155,114 +193,139 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One conv over shared memory on the tensor cores.  w: the conv's B
-// fragments, [K/8][CO/8][32 lanes] x float4 (b0 big, b1 big, b0 small,
-// b1 small); bias: [CO].  Warp items of kWM m-tiles x kWN n-tiles go round
-// the block's warps.
-template <class G, int EPI>
+// Copy n floats (a multiple of 4, 16-byte aligned) global -> shared with
+// cp.async, bypassing L1, as one commit group of the calling thread.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x * 4; i < n; i += kThreads * 4) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + i));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One conv over shared memory on the tensor cores, out^T = W x im2col(in):
+// A = W [Co][K] (m16 tiles of output channels), B = the im2col view of `in`
+// (n8 tiles of positions).  The weights come pre-split from the fold as A
+// fragments, [K/8][Co/16][32 lanes] x 8 floats (a0..a3 big, a0..a3 small),
+// staged into shared memory one tap at a time: tap t computes from stage
+// `cur` while cp.async fills the other with tap t + 1, or with the first
+// tap of conv NEXT.  Activations split as their B fragments load.  Every
+// warp takes at most one item of WM m-tiles x WN n-tiles; all threads
+// reach the per-tap barrier.
+template <class G, int I, int NEXT, int WM, int WN, int EPI>
 __device__ __forceinline__ void mma_conv(const float* in, float* out,
-                                         const float* __restrict__ w,
-                                         const float* __restrict__ bias) {
-  constexpr int NT = G::CO / 8;
+                                         const float* __restrict__ weights,
+                                         float* wstage, int& cur) {
+  constexpr int MT = G::CO / 16;
   constexpr int CB = G::CI / 8;        // k-steps per tap
-  constexpr int NI = NT / kWN;
-  constexpr int ITEMS = cdiv(G::MT, kWM) * NI;
-  static_assert(G::CI % 8 == 0 && NT % kWN == 0, "conv shape");
+  constexpr int MI = MT / WM;
+  constexpr int ITEMS = G::NT / WN * MI;
+  constexpr int TAP = tap_floats(I);
+  static_assert(G::CI % 8 == 0 && MT % WM == 0 && G::NT % WN == 0 &&
+                ITEMS <= kWarps, "conv tiling");
+  static_assert(G::TAPS == conv_taps(I) && G::CO == conv_co(I) &&
+                G::TAPS * G::CI == conv_k(I) && TAP <= kStage, "conv layout");
+  const float* w = weights + conv_off(I);
+  const float* bias = w + 2 * conv_k(I) * G::CO;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const float4* wf = reinterpret_cast<const float4*>(w);
+  const bool busy = warp < ITEMS;
+  const int mt0 = (warp % MI) * WM;
+  const int nt0 = (warp / MI) * WN;
 
-  for (int item = threadIdx.x >> 5; item < ITEMS; item += kWarps) {
-    const int mt0 = (item / NI) * kWM;
-    const int nt0 = (item % NI) * kWN;
-    float acc[kWM][kWN][4];
+  float acc[WM][WN][4];
 #pragma unroll
-    for (int j = 0; j < kWN; ++j) {
-      const float b0 = __ldg(bias + (nt0 + j) * 8 + 2 * t);
-      const float b1 = __ldg(bias + (nt0 + j) * 8 + 2 * t + 1);
+  for (int i = 0; i < WM; ++i) {
+    const float lo = __ldg(bias + (mt0 + i) * 16 + g);
+    const float hi = __ldg(bias + (mt0 + i) * 16 + g + 8);
 #pragma unroll
-      for (int i = 0; i < kWM; ++i) {
-        acc[i][j][0] = b0;
-        acc[i][j][1] = b1;
-        acc[i][j][2] = b0;
-        acc[i][j][3] = b1;
-      }
+    for (int j = 0; j < WN; ++j) {
+      acc[i][j][0] = lo;
+      acc[i][j][1] = lo;
+      acc[i][j][2] = hi;
+      acc[i][j][3] = hi;
     }
-    const float* a_lane = in + G::IN_OFF + t * G::CS + (mt0 * 16 + g) * G::QS;
-    const float4* b_lane = wf + nt0 * 32 + lane;
+  }
+  const float* b_lane = in + G::IN_OFF + t * G::CS + (nt0 * 8 + g) * G::QS;
+
 #pragma unroll 1
-    for (int tap = 0; tap < G::TAPS; ++tap) {
-      const float* a_tap = a_lane + tap * G::TS;
-      const float4* b_tap = b_lane + tap * CB * NT * 32;
+  for (int tap = 0; tap < G::TAPS; ++tap) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (tap + 1 < G::TAPS) {
+      stage(wstage + (cur ^ 1) * kStage, w + (tap + 1) * TAP, TAP);
+    } else if (NEXT >= 0) {
+      stage(wstage + (cur ^ 1) * kStage, weights + conv_off(imax(NEXT, 0)),
+            tap_floats(NEXT));
+    }
+    if (busy) {
+      const float4* a_lane =
+          reinterpret_cast<const float4*>(wstage + cur * kStage) + mt0 * 64 + lane;
+      const float* b_tap = b_lane + tap * G::TS;
 #pragma unroll
       for (int cb = 0; cb < CB; ++cb) {
-        uint32_t bb[kWN][2], bs[kWN][2];
+        uint32_t ab[WM][4], as[WM][4];
 #pragma unroll
-        for (int j = 0; j < kWN; ++j) {
-          const float4 v = __ldg(b_tap + (cb * NT + j) * 32);
-          bb[j][0] = __float_as_uint(v.x);
-          bb[j][1] = __float_as_uint(v.y);
-          bs[j][0] = __float_as_uint(v.z);
-          bs[j][1] = __float_as_uint(v.w);
+        for (int i = 0; i < WM; ++i) {
+          const float4 vb = a_lane[(cb * MT + i) * 64];
+          const float4 vs = a_lane[(cb * MT + i) * 64 + 32];
+          ab[i][0] = __float_as_uint(vb.x);
+          ab[i][1] = __float_as_uint(vb.y);
+          ab[i][2] = __float_as_uint(vb.z);
+          ab[i][3] = __float_as_uint(vb.w);
+          as[i][0] = __float_as_uint(vs.x);
+          as[i][1] = __float_as_uint(vs.y);
+          as[i][2] = __float_as_uint(vs.z);
+          as[i][3] = __float_as_uint(vs.w);
         }
 #pragma unroll
-        for (int i = 0; i < kWM; ++i) {
-          if (mt0 + i < G::MT) {
-            const float* ap = a_tap + cb * 8 * G::CS + i * 16 * G::QS;
-            const float x[4] = {ap[0], ap[8 * G::QS], ap[4 * G::CS],
-                                ap[4 * G::CS + 8 * G::QS]};
-            uint32_t big[4], small[4];
+        for (int j = 0; j < WN; ++j) {
+          const float* bp = b_tap + cb * 8 * G::CS + j * 8 * G::QS;
+          const float x0 = bp[0];
+          const float x1 = bp[4 * G::CS];
+          const uint32_t big0 = tf32_rna(x0);
+          const uint32_t big1 = tf32_rna(x1);
+          const uint32_t small0 = tf32_rna(x0 - __uint_as_float(big0));
+          const uint32_t small1 = tf32_rna(x1 - __uint_as_float(big1));
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              big[e] = tf32_rna(x[e]);
-              small[e] = tf32_rna(x[e] - __uint_as_float(big[e]));
-            }
-#pragma unroll
-            for (int j = 0; j < kWN; ++j) {
-              mma_tf32(acc[i][j], small, bb[j][0], bb[j][1]);
-              mma_tf32(acc[i][j], big, bs[j][0], bs[j][1]);
-              mma_tf32(acc[i][j], big, bb[j][0], bb[j][1]);
-            }
+          for (int i = 0; i < WM; ++i) {
+            mma_tf32(acc[i][j], as[i], big0, big1);
+            mma_tf32(acc[i][j], ab[i], small0, small1);
+            mma_tf32(acc[i][j], ab[i], big0, big1);
           }
         }
       }
     }
-    // accumulator (i, j, e) holds output q = tile row g (+8), co = 2t (+1)
+    cur ^= 1;
+  }
+  if (!busy) return;
+  // accumulator (i, j, e): co = tile row g (+8), position q = 2t (+1)
 #pragma unroll
-    for (int i = 0; i < kWM; ++i) {
+  for (int i = 0; i < WM; ++i) {
 #pragma unroll
-      for (int j = 0; j < kWN; ++j) {
+    for (int j = 0; j < WN; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = (mt0 + i) * 16 + g + (e >> 1) * 8;
-          const int co = (nt0 + j) * 8 + 2 * t + (e & 1);
-          const int r = q / G::PQ;
-          const int l = q - r * G::PQ;
-          if (r < kRows && l < G::LO) {
-            float* o = out + co * G::OUT_LD + q + G::OUT_OFF;
-            const float v = acc[i][j][e];
-            if (EPI == kRelu) {
-              *o = fmaxf(v, 0.0f);
-            } else if (EPI == kReluAdd) {
-              *o += fmaxf(v, 0.0f);
-            } else {
-              *o = v;
-            }
+      for (int e = 0; e < 4; ++e) {
+        const int co = (mt0 + i) * 16 + g + (e >> 1) * 8;
+        const int q = (nt0 + j) * 8 + 2 * t + (e & 1);
+        const int r = q / G::PQ;
+        const int l = q - r * G::PQ;
+        if (r < kRows && l < G::LO) {
+          float* o = out + co * G::OUT_LD + q + G::OUT_OFF;
+          const float v = acc[i][j][e];
+          if (EPI == kRelu) {
+            *o = fmaxf(v, 0.0f);
+          } else if (EPI == kReluAdd) {
+            *o += fmaxf(v, 0.0f);
+          } else {
+            *o = v;
           }
         }
       }
     }
   }
-}
-
-// Next conv in the flat buffer: 2 * K * Co fragment floats, then b [Co].
-__device__ __forceinline__ void take(const float*& p, int k, int co,
-                                     const float*& w, const float*& b) {
-  w = p;
-  p += 2 * k * co;
-  b = p;
-  p += co;
 }
 
 template <int C>
@@ -295,29 +358,25 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
   extern __shared__ float smem[];
   float* reg1 = smem;
   float* reg2 = smem + kRegion1;
+  float* wstage = reg2 + kRegion2;
   const int tid = threadIdx.x;
-  const float* p = weights;
-  const float* w;
-  const float* b;
+  int cur = 0;
+  stage(wstage, weights, tap_floats(0));
 
   // uint8 rows [kRows * 150][C] -> fp32, position-major, in region 1; rows
-  // past nb and the tail that stem conv 1's padded K reads are zero
+  // past nb and the tail that stem conv 1's padded K reads are zero (the
+  // first conv's barrier publishes them)
   const int n_in = min(kRows, nb - r0) * kLIn * C;
   const uint8_t* src = rows + static_cast<size_t>(r0) * kLIn * C;
   for (int i = tid; i < kIn0Pos * C; i += kThreads) {
     reg1[i] = i < n_in ? static_cast<float>(src[i]) : 0.0f;
   }
-  __syncthreads();
 
-  // stem: three valid k3 convs with ReLU, positions q = r * 150 + l
-  take(p, kKPad1, 16, w, b);
-  mma_conv<Stem1<C>, kRelu>(reg1, reg2, w, b);
-  __syncthreads();
-  take(p, 48, 16, w, b);
-  mma_conv<Stem2, kRelu>(reg2, reg1, w, b);
-  __syncthreads();
-  take(p, 48, 32, w, b);
-  mma_conv<Stem3, kRelu>(reg1, reg2, w, b);
+  // stem: three valid k3 convs with ReLU, positions q = r * 150 + l; a
+  // conv's first barrier orders it after the previous conv's stores
+  mma_conv<Stem1<C>, 0, 1, 1, kWNStem, kRelu>(reg1, reg2, weights, wstage, cur);
+  mma_conv<Stem2, 1, 2, 1, kWNStem, kRelu>(reg2, reg1, weights, wstage, cur);
+  mma_conv<Stem3, 2, 3, 2, kWNStem, kRelu>(reg1, reg2, weights, wstage, cur);
   __syncthreads();
 
   // max-pool k3 s2: 32 x 144 per row -> x32 rows of [halo, 71, halo, 3 spare]
@@ -337,8 +396,8 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
   }
   __syncthreads();
 
-  // y32's halo and spare columns (cols 0, 72..75), in the phase of the first
-  // conv, which writes only data columns
+  // y32's halo and spare columns (cols 0, 72..75); the convs write only
+  // data columns
   for (int i = tid; i < 32 * kRows * 5; i += kThreads) {
     const int c = i / (kRows * 5);
     const int rem = i - c * (kRows * 5);
@@ -347,26 +406,19 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
     y32[c * kLd32 + r * kP32 + (h == 0 ? 0 : kLPool + h)] = 0.0f;
   }
   // 3 residual blocks at 32 channels: x += relu(conv(relu(conv(x))))
-  for (int blk = 0; blk < 3; ++blk) {
-    take(p, 96, 32, w, b);
-    mma_conv<RB32, kRelu>(x32, y32, w, b);
-    __syncthreads();
-    take(p, 96, 32, w, b);
-    mma_conv<RB32, kReluAdd>(y32, x32, w, b);
-    __syncthreads();
-  }
+  mma_conv<RB32, 3, 4, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
+  mma_conv<RB32, 4, 5, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
+  mma_conv<RB32, 5, 6, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
+  mma_conv<RB32, 6, 7, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
+  mma_conv<RB32, 7, 8, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
+  mma_conv<RB32, 8, 9, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
+  __syncthreads();
 
-  // stride-2 residual block 32 -> 64: y = relu(conv_s2(x)), x' = conv1x1_s2(x)
-  // in one phase (with the halo columns of both), then x' += relu(conv(y))
+  // stride-2 residual block 32 -> 64: y = relu(conv_s2(x)) and the
+  // shortcut x' = conv1x1_s2(x) (with the halo columns of both), then
+  // x' += relu(conv(y))
   float* y64 = reg2;
   float* x64 = reg2 + 64 * kLd64;
-  take(p, 96, 64, w, b);
-  const float* w2;
-  const float* b2;
-  take(p, 192, 64, w2, b2);
-  const float* ws;
-  const float* bs;
-  take(p, 32, 64, ws, bs);
   for (int i = tid; i < 64 * kRows * 2; i += kThreads) {
     const int c = i / (kRows * 2);
     const int rem = i - c * (kRows * 2);
@@ -374,21 +426,18 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
     y64[c * kLd64 + col] = 0.0f;
     x64[c * kLd64 + col] = 0.0f;
   }
-  mma_conv<Down, kRelu>(x32, y64, w, b);
-  mma_conv<Short, kLinear>(x32, x64, ws, bs);
-  __syncthreads();
-  mma_conv<RB64, kReluAdd>(y64, x64, w2, b2);
-  __syncthreads();
+  mma_conv<Down, 9, 11, 2, kWN, kRelu>(x32, y64, weights, wstage, cur);
+  mma_conv<Short, 11, 10, 2, kWN, kLinear>(x32, x64, weights, wstage, cur);
+  mma_conv<RB64, 10, 12, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
 
   // 3 residual blocks at 64 channels, x in x64
-  for (int blk = 0; blk < 3; ++blk) {
-    take(p, 192, 64, w, b);
-    mma_conv<RB64, kRelu>(x64, y64, w, b);
-    __syncthreads();
-    take(p, 192, 64, w, b);
-    mma_conv<RB64, kReluAdd>(y64, x64, w, b);
-    __syncthreads();
-  }
+  mma_conv<RB64, 12, 13, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
+  mma_conv<RB64, 13, 14, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  mma_conv<RB64, 14, 15, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
+  mma_conv<RB64, 15, 16, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  mma_conv<RB64, 16, 17, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
+  mma_conv<RB64, 17, -1, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  __syncthreads();
 
   // out[a, l, c] += valid * x[c, l] for each valid row
 #pragma unroll

@@ -24,8 +24,8 @@ the kernel or raises.
 Weights are folded once per parameter set (``fold_read_conv_weights``): the
 weight norm is applied and each conv becomes ``W[Co, K*Ci]`` (k-major, as
 hello_tpu's ``extract_read_conv_weights``) plus ``b[Co]``.  The kernel reads
-one flat buffer holding, per conv, ``W^T`` split into TF32 ``big`` and
-``small`` parts in mma.sync B-fragment order (``pack_conv``), then ``b``.
+one flat buffer holding, per conv, ``W`` split into TF32 ``big`` and
+``small`` parts in mma.sync A-fragment order (``pack_conv``), then ``b``.
 The topology gate raises for a read convolver the kernel does not
 implement.
 """
@@ -181,21 +181,26 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_conv(w: torch.Tensor) -> torch.Tensor:
-    """``W [Co, K*Ci]`` -> the kernel's B fragments of ``W^T``, flat.
+    """``W [Co, K*Ci]`` -> the kernel's mma.sync A fragments, flat.
 
-    K is zero-padded to ``padded_k``, W splits into ``big = tf32(W)`` and
-    ``small = tf32(W - big)``, and the layout is [K/8][Co/8][lane 32][4]
-    with, for lane = 4 g + t of the mma.sync.m16n8k8 TF32 B fragment,
-    (big W[8n + g, 8k + t], big W[8n + g, 8k + t + 4], small ..., small ...):
-    one 16-byte load per lane per (k-step, n-tile)."""
+    The kernel computes each conv as ``W @ im2col(x)`` on m16n8k8 TF32
+    products with W as the row-major A operand.  K is zero-padded to
+    ``padded_k``, W splits into ``big = tf32(W)`` and ``small =
+    tf32(W - big)``, and the layout is [K/8][Co/16][big, small][lane 32][4]:
+    for lane = 4 g + t, the fragment a0..a3 = W[16m + g, 8k + t],
+    W[16m + g + 8, 8k + t], W[16m + g, 8k + t + 4], W[16m + g + 8,
+    8k + t + 4] (one 16-byte load per lane for each of big and small, the
+    warp's 32 lanes on 512 contiguous bytes)."""
     co, kc = w.shape
     kp = padded_k(kc)
     w = F.pad(w.float(), (0, kp - kc))
     big = tf32_round(w)
     small = tf32_round(w - big)
-    # [n, g, k, h, t] -> [k, n, g, t, h]: K index 8k + 4h + t, Co index 8n + g
-    frag = lambda m: m.reshape(co // 8, 8, kp // 8, 2, 4).permute(2, 0, 1, 4, 3)
-    return torch.stack([frag(big), frag(small)], dim=-2).reshape(-1)
+    # [m, hr, g, k, hc, t] -> [k, m, g, t, hc, hr]: Co index 16m + 8hr + g,
+    # K index 8k + 4hc + t, so a0..a3 = (hc, hr) = (0,0), (0,1), (1,0), (1,1)
+    frag = lambda m: m.reshape(co // 16, 2, 8, kp // 8, 2, 4).permute(
+        3, 0, 2, 5, 4, 1)
+    return torch.stack([frag(big), frag(small)], dim=2).reshape(-1)
 
 
 @torch.no_grad()
