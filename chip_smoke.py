@@ -7,16 +7,21 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc builds every kernel of the main path from the checkout's
-             sources (ops/csrc/read_conv.cu) and reports ptxas' resources,
+             sources (ops/csrc/read_conv.cu), and the mma probe
+             (ops/csrc/mma_probe.cu), in parallel; reports ptxas' resources,
              the read rows, dynamic shared memory and threads per block and
              the resident blocks per SM;
+  probe      the card's rate of mma.sync m16n8k8 TF32, the read-conv
+             kernel's product instruction, at the kernel's 8 warps per SM:
+             the ceiling of its tensor-core work short of wgmma;
   kernel     read_conv_reduce (CUDA) against its plain PyTorch version on the
              card, fp32 with TF32 off, for C = 6 and C = 7, at ~40k packed
              rows (2049 alleles, an odd A, at 32-read buckets and ~60%
              occupancy, with padding rows and fully masked alleles); error,
              kernel and plain medians, and the bounds from this run's inputs:
              fp32 FMA, 3xTF32 on the tensor cores (the kernel's route, and
-             its bound_ms) and a single TF32 pass;
+             its bound_ms), 3xTF32 at the probe's mma.sync rate, and a single
+             TF32 pass;
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -40,6 +45,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PROBE = os.path.join(ROOT, "hello_tpu_torch", "ops", "csrc", "mma_probe.cu")
 
 # published peaks (NVIDIA data sheets, dense): fp32 outside the tensor
 # cores, TF32 on the tensor cores, and memory bandwidth, by card
@@ -104,16 +110,54 @@ def device_phase():
 
 
 def build_phase():
+    """Build the kernel and the probe, one nvcc each, started together;
+    returns the probe's library."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from hello_tpu_torch.ops import read_conv as rc
 
     t0 = time.perf_counter()
-    path, report = rc.build()
+    with ThreadPoolExecutor(2) as pool:
+        (path, report), (probe, _) = pool.map(rc.build, (rc.SOURCE, PROBE))
     seconds = time.perf_counter() - t0
     ptxas = [line.strip() for line in report.splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": seconds,
           "library": os.path.relpath(path, ROOT), "ptxas": ptxas,
           "launch": {c: rc.kernel_info(c) for c in (6, 7)}})
+    return probe
+
+
+def probe_phase(probe):
+    """mma.sync TF32 rate (FLOP/s) at one 256-thread block per SM."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(probe)
+    lib.mma_tf32_probe.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    lib.mma_tf32_probe.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 256, 4096
+    out = torch.empty(sms * threads, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = ctypes.c_float()
+    times = []
+    for _ in range(5):
+        err = lib.mma_tf32_probe(sms, threads, iters, out.data_ptr(), stream,
+                                 ctypes.byref(ms))
+        if err != 0:
+            raise RuntimeError(f"mma probe failed: cudaError {err}")
+        times.append(ms.value)
+    # each m16n8k8 is 16 * 8 * 8 multiply-adds; 10 per warp per iteration
+    flop = 2 * 16 * 8 * 8 * 10 * iters * sms * threads // 32
+    rate = flop / statistics.median(times) * 1e3
+    peak = card_peaks(torch.cuda.get_device_name(0))["tf32"]
+    emit({"phase": "probe", "instruction": "mma.sync.m16n8k8.tf32",
+          "warps_per_sm": threads // 32, "ms": statistics.median(times),
+          "tflop_per_s": rate / 1e12, "share_of_tf32_peak": rate / peak})
+    return rate
 
 
 def kernel_inputs(rng, channels, device):
@@ -138,7 +182,7 @@ def kernel_inputs(rng, channels, device):
     return to(rows), to(row_allele), to(row_valid), A, zero_alleles
 
 
-def kernel_phase(name, channels, seed):
+def kernel_phase(name, channels, seed, mma_rate):
     """Kernel against the plain version; returns the kernel line's numbers."""
     import numpy as np
     import torch
@@ -189,6 +233,7 @@ def kernel_phase(name, channels, seed):
             "bound_ms": max(tf32x3_ms, byte_ms),
             "bound_by": "operations" if tf32x3_ms >= byte_ms else "bytes",
             "fp32_bound_ms": fp32_ms, "tf32x3_bound_ms": tf32x3_ms,
+            "mma_sync_bound_ms": 1e3 * 3 * flop / mma_rate,
             "tf32_bound_ms": max(1e3 * flop / peaks["tf32"], byte_ms),
             "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
             "tflop_per_s": flop / ms / 1e9}
@@ -285,9 +330,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     name, smi = device_phase()
-    build_phase()
-    lines = [kernel_phase("illumina", 6, seed=0),
-             kernel_phase("pacbio_hp", 7, seed=1)]
+    mma_rate = probe_phase(build_phase())
+    lines = [kernel_phase("illumina", 6, seed=0, mma_rate=mma_rate),
+             kernel_phase("pacbio_hp", 7, seed=1, mma_rate=mma_rate)]
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as workdir:
         launches = main_path_phase(workdir)
     k6 = lines[0]
@@ -301,6 +346,7 @@ def main():
         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "fp32_bound_ms": k6["fp32_bound_ms"],
+        "mma_sync_bound_ms": k6["mma_sync_bound_ms"],
         "ms_C7": lines[1]["ms"], "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -19,8 +19,8 @@
 // 389.8 GFLOP) on an H100 SXM: 5.82 ms at the fp32 FMA peak (67 TFLOP/s);
 // 2.36 ms for the three TF32 passes this design issues at the tensor-core
 // peak (3 x 389.8 GFLOP at 495 TFLOP/s; 3.09 ms on the PCIe card).
-// mma.sync reaches about half of that peak on the card; wgmma is the way to
-// the rest.
+// mma.sync's TF32 rate is about half that peak (chip_smoke.py's probe,
+// ops/csrc/mma_probe.cu); wgmma is the way to the rest.
 //
 // Accuracy: every product is 3xTF32.  Each operand x splits into
 // big = tf32(x) and small = tf32(x - big), both rounded to nearest with
@@ -46,8 +46,9 @@
 //     4-byte loads per lane each) for 30 mma, where the SIMT kernel spent 9
 //     loads on 12 FMAs.  The n-tile loop has no branch: tile counts are
 //     rounded up to whole warp items and buffers sized so the extra tiles
-//     read in bounds (a guard there cost 40% by splitting the loop into one
-//     basic block per tile).
+//     read in bounds (a guard there splits the loop into one basic block
+//     per tile, and one tile's loads and split can no longer overlap
+//     another's mma).
 //   * Idle lanes.  Each conv is cut into exactly 8 warp items, one per warp,
 //     so warps do equal work between barriers; the waste is positions
 //     rounded up to items and the per-row halo columns, 12% of the mma.
@@ -79,8 +80,8 @@
 // What it still leaves: wgmma (warpgroup tiles from shared-memory
 // descriptors, twice mma.sync's rate), TMA for the weight stages, and
 // persistent blocks that overlap one block's epilogue and barriers with the
-// next block's products; the activation split still costs about a seventh
-// of the time.
+// next block's products; and the activation split, four integer and
+// float ops per element on the way from shared memory to the mma.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

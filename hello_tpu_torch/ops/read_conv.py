@@ -282,18 +282,20 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Tuple[str, str]:
-    """Compile ``csrc/read_conv.cu`` for sm_90a into ``ops/build/`` (once per
-    source content).  Returns (library path, the compiler's report — ptxas
-    registers, shared memory and spills — or "" when already built)."""
-    with open(SOURCE, "rb") as fh:
+def build(source: str = SOURCE) -> Tuple[str, str]:
+    """Compile a CUDA source (default ``csrc/read_conv.cu``) for sm_90a into
+    ``ops/build/`` (once per source content).  Returns (library path, the
+    compiler's report — ptxas registers, shared memory and spills — or ""
+    when already built)."""
+    with open(source, "rb") as fh:
         tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libread_conv_{tag}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
