@@ -70,7 +70,12 @@ def test_folded_weights_equal_extract():
         assert tuple(g.shape) == tuple(w.shape)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
                                    atol=1e-7)
-    assert folded.flat.numel() == rc.num_weight_floats(6)
+    # the kernel's buffer: per conv, TF32 big and small fragments of W with K
+    # padded to a multiple of 8, then b (tests/test_torch_read_conv_tc.py
+    # unpacks it)
+    assert folded.flat.numel() == rc.num_weight_floats(6) == sum(
+        2 * w.shape[0] * rc.padded_k(w.shape[1]) + w.shape[0]
+        for w, _ in folded.convs)
     assert folded.in_channels == 6
 
 
@@ -173,7 +178,8 @@ def test_cpu_tensors_take_the_plain_version(rng):
 
 @pytest.mark.parametrize("bad", ["rows_dtype", "channels", "allele_dtype",
                                  "valid_shape", "noncontiguous",
-                                 "weights_channels", "no_alleles"])
+                                 "weights_channels", "weights_misaligned",
+                                 "no_alleles"])
 def test_kernel_argument_checks_raise(rng, bad):
     """What the CUDA kernel does not take is refused before a launch (the
     checks are device-independent, so they run here on CPU tensors)."""
@@ -197,6 +203,10 @@ def test_kernel_argument_checks_raise(rng, bad):
     elif bad == "weights_channels":
         _, _, hp = _pair("pacbio_hp", 4)
         args["folded"] = rc.fold_read_conv_weights(hp.read_convolver0)
+    elif bad == "weights_misaligned":
+        # the kernel loads 16-byte fragments: a buffer 4 bytes off is refused
+        flat = torch.cat([torch.zeros(1), folded.flat])[1:]
+        args["folded"] = rc.FoldedReadConv(folded.convs, flat, 6)
     else:
         args["num_alleles"] = 0
     with pytest.raises((TypeError, ValueError)):
