@@ -207,12 +207,12 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
 // One conv over shared memory on the tensor cores, out^T = W x im2col(in):
 // A = W [Co][K] (m16 tiles of output channels), B = the im2col view of `in`
 // (n8 tiles of positions).  The weights come pre-split from the fold as A
-// fragments, [K/8][Co/16][32 lanes] x 8 floats (a0..a3 big, a0..a3 small),
-// staged into shared memory one tap at a time: tap t computes from stage
-// `cur` while cp.async fills the other with tap t + 1, or with the first
-// tap of conv NEXT.  Activations split as their B fragments load.  Every
-// warp takes at most one item of WM m-tiles x WN n-tiles; all threads
-// reach the per-tap barrier.
+// fragments, [K/8][Co/16][big, small][32 lanes][a0..a3] (pack_conv in
+// ops/read_conv.py), staged into shared memory one tap at a time: tap t
+// computes from stage `cur` while cp.async fills the other with tap t + 1,
+// or with the first tap of conv NEXT.  Activations split as their B
+// fragments load.  Every warp takes at most one item of WM m-tiles x WN
+// n-tiles; all threads reach the per-tap barrier.
 template <class G, int I, int NEXT, int WM, int WN, int EPI>
 __device__ __forceinline__ void mma_conv(const float* in, float* out,
                                          const float* __restrict__ weights,

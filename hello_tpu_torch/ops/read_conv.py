@@ -167,7 +167,7 @@ def padded_k(kc: int) -> int:
 
 
 def num_weight_floats(in_channels: int) -> int:
-    """Floats of the kernel's buffer: per conv, big and small B fragments
+    """Floats of the kernel's buffer: per conv, big and small A fragments
     (2 * Co * padded K) and the bias."""
     shapes = [(16, 3 * in_channels)] + _EXPECTED_TAIL_SHAPES
     return sum(2 * co * padded_k(kc) + co for co, kc in shapes)
