@@ -150,8 +150,8 @@ def probe_phase(probe):
         if err != 0:
             raise RuntimeError(f"mma probe failed: cudaError {err}")
         times.append(ms.value)
-    # each m16n8k8 is 16 * 8 * 8 multiply-adds; 10 per warp per iteration
-    flop = 2 * 16 * 8 * 8 * 10 * iters * sms * threads // 32
+    # each m16n8k8 is 16 * 8 * 8 multiply-adds; 12 per warp per iteration
+    flop = 2 * 16 * 8 * 8 * 12 * iters * sms * threads // 32
     rate = flop / statistics.median(times) * 1e3
     peak = card_peaks(torch.cuda.get_device_name(0))["tf32"]
     emit({"phase": "probe", "instruction": "mma.sync.m16n8k8.tf32",

@@ -1,6 +1,6 @@
 // Throughput probe for mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32,
 // the product instruction of the read-conv kernel (read_conv.cu), issued
-// back to back from registers by every warp, with the kernel's 10
+// back to back from registers by every warp, with the kernel's 12
 // independent accumulator tiles per warp.  chip_smoke.py launches it at the
 // kernel's occupancy (one 256-thread block per SM) and reports the rate as
 // the ceiling that kernel's tensor-core products can reach on the card.
@@ -10,7 +10,7 @@
 
 namespace {
 
-constexpr int kAcc = 10;
+constexpr int kAcc = 12;
 
 __global__ void mma_probe_kernel(float* out, int iters) {
   float acc[kAcc][4] = {};
@@ -35,7 +35,7 @@ __global__ void mma_probe_kernel(float* out, int iters) {
 }  // namespace
 
 // One timed launch of blocks x threads threads, each warp issuing
-// iters x 10 mma (after an untimed warm-up launch) on `stream`; `out` holds
+// iters x 12 mma (after an untimed warm-up launch) on `stream`; `out` holds
 // blocks * threads floats.  Writes the device time to *ms; returns the
 // cudaError_t (0 on success).
 extern "C" int mma_tf32_probe(int blocks, int threads, int iters, void* out,

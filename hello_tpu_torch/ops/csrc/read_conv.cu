@@ -42,8 +42,8 @@
 //     stride-2 conv and the 1x1 stride-2 shortcut are the same product with
 //     another B address.  Weights are A, so their split costs nothing here.
 //   * Load issue.  Per k-step a warp loads 2 m-tiles of A (two 16-byte
-//     shared loads per lane each, big and small) and 5 n-tiles of B (two
-//     4-byte loads per lane each) for 30 mma, where the SIMT kernel spent 9
+//     shared loads per lane each, big and small) and 6 n-tiles of B (two
+//     4-byte loads per lane each) for 36 mma, where the SIMT kernel spent 9
 //     loads on 12 FMAs.  The n-tile loop has no branch: tile counts are
 //     rounded up to whole warp items and buffers sized so the extra tiles
 //     read in bounds (a guard there splits the loop into one basic block
@@ -51,17 +51,19 @@
 //     another's mma).
 //   * Idle lanes.  Each conv is cut into exactly 8 warp items, one per warp,
 //     so warps do equal work between barriers; the waste is positions
-//     rounded up to items and the per-row halo columns, 12% of the mma.
-//   * Rows per block.  kRows = 4 rows are stacked along N: a layer's
+//     rounded up to items, the per-row halo columns and stem conv 1's
+//     padded K: 7% more mma than the rows' outputs need.
+//   * Rows per block.  kRows = 5 rows are stacked along N: a layer's
 //     positions are one stream r * P + l over the block's rows, each row
 //     with its own halo columns, and the row strides make every conv's B
 //     address linear in the stream index (32-channel rows 76 = 2 x 38, the
-//     64-channel stride).  Weights are read once per 4 rows.
+//     64-channel stride).  Weights are read once per 5 rows; 5 is the most
+//     that shared memory holds, and it cuts every conv into whole items.
 //   * Weights in shared memory.  Each conv's fragments are staged one tap at
 //     a time with cp.async, double-buffered: while a tap computes, the next
 //     (or the next conv's first) lands.  One barrier per tap publishes the
 //     stage and orders a conv after the previous conv's stores: 54 barriers
-//     per 4 rows, where the SIMT kernel had 18 per row.
+//     per 5 rows, where the SIMT kernel had 18 per row.
 //   * Bank conflicts.  Channel-major buffers [ci][position] with a leading
 //     dimension = 8 (mod 32), so the 32 lanes of a B-fragment load hit 32
 //     banks (2-way for the stride-2 reads and stem conv 1's position-major
@@ -72,9 +74,9 @@
 //     row_valid * frame into out[row_allele] for each valid row.  Rows with
 //     row_valid == 0 or row_allele outside [0, A) add nothing; a block whose
 //     rows are all such (the wire's tail of padding rows) returns at once.
-//   * Occupancy: 193,536 bytes of shared memory (activations 128,000, two
+//   * Occupancy: 218,112 bytes of shared memory (activations 152,576, two
 //     weight stages 65,536), one 256-thread block per SM; latency is hidden
-//     by each warp's 10 independent accumulator tiles and by the cp.async
+//     by each warp's 12 independent accumulator tiles and by the cp.async
 //     prefetch, not by more warps.
 //
 // What it still leaves: wgmma (warpgroup tiles from shared-memory
@@ -90,7 +92,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;             // read rows per block, stacked along N
+constexpr int kRows = 5;             // read rows per block, stacked along N
 
 constexpr int kLIn = 150;
 constexpr int kLPool = 71;           // (144 - 3) / 2 + 1
@@ -111,8 +113,8 @@ __host__ __device__ constexpr int ntiles(int pq, int lo, int wn) {
   return cdiv(cdiv((kRows - 1) * pq + lo, 8), wn) * wn;
 }
 
-constexpr int kWNStem = 10;          // n8 tiles per warp item: stem convs
-constexpr int kWN = 5;               // the others
+constexpr int kWNStem = 12;          // n8 tiles per warp item: stem convs
+constexpr int kWN = 6;               // the others
 constexpr int kNT1 = ntiles(kLIn, 148, kWNStem);
 constexpr int kNT2 = ntiles(kLIn, 146, kWNStem);
 constexpr int kNT3 = ntiles(kLIn, 144, kWNStem);

@@ -9,7 +9,7 @@ allele slot.  ``read_conv_reduce`` computes
              row_valid[r] * read_convolver(rows[r])          -> [A, 36, 64]
 
 in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: 3xTF32
-``mma.sync`` tensor-core convs over 4 read rows per block, built with
+``mma.sync`` tensor-core convs over 5 read rows per block, built with
 ``nvcc`` into ``ops/build/`` at first use and loaded with ctypes).  It
 replaces the two Pallas TPU kernels of hello_tpu's ops/read_conv.py
 (``_stem_kernel`` and ``_tail_kernel``) and the reduction after them, and
