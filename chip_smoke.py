@@ -223,7 +223,7 @@ def kernel_phase(name, channels, seed, mma_rate):
     peaks = card_peaks(torch.cuda.get_device_name(0))
     byte_ms = 1e3 * nbytes / peaks["bytes"]
     fp32_ms = max(1e3 * flop / peaks["fp32"], byte_ms)
-    # the kernel issues every product as three TF32 mma passes (3xTF32)
+    # the kernel computes every product as three TF32 mma passes (3xTF32)
     tf32x3_ms = 1e3 * 3 * flop / peaks["tf32"]
     line = {"phase": "kernel", "kernel": "read_conv_reduce", "C": channels,
             "nb": rows.shape[0], "A": A, "rows_computed": computed,

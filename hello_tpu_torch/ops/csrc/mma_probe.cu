@@ -1,5 +1,5 @@
 // Throughput probe for mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32,
-// the product instruction of the read-conv kernel (read_conv.cu), issued
+// the product instruction of the read-conv kernel (read_conv.cu), run
 // back to back from registers by every warp, with the kernel's 12
 // independent accumulator tiles per warp.  chip_smoke.py launches it at the
 // kernel's occupancy (one 256-thread block per SM) and reports the rate as

@@ -17,7 +17,7 @@
 // 18 convs) against ~0.9 KB of uint8 input, so operations bound it, not
 // bytes.  For the kernel phase of chip_smoke.py (38,399 computed rows,
 // 389.8 GFLOP) on an H100 SXM: 5.82 ms at the fp32 FMA peak (67 TFLOP/s);
-// 2.36 ms for the three TF32 passes this design issues at the tensor-core
+// 2.36 ms for the three TF32 passes this design runs at the tensor-core
 // peak (3 x 389.8 GFLOP at 495 TFLOP/s; 3.09 ms on the PCIe card).
 // mma.sync's TF32 rate is about half that peak (chip_smoke.py's probe,
 // ops/csrc/mma_probe.cu); wgmma is the way to the rest.
@@ -41,7 +41,7 @@
 //     view of a shared-memory activation buffer addressed in place: the
 //     stride-2 conv and the 1x1 stride-2 shortcut are the same product with
 //     another B address.  Weights are A, so their split costs nothing here.
-//   * Load issue.  Per k-step a warp loads 2 m-tiles of A (two 16-byte
+//   * Loads per mma.  Per k-step a warp loads 2 m-tiles of A (two 16-byte
 //     shared loads per lane each, big and small) and 6 n-tiles of B (two
 //     4-byte loads per lane each) for 36 mma, where the SIMT kernel spent 9
 //     loads on 12 FMAs.  The n-tile loop has no branch: tile counts are

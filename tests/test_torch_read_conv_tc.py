@@ -116,7 +116,7 @@ def test_tf32_round_matches_rna_on_ties_and_signs():
 
 
 def conv_tf32(passes):
-    """The plain version's conv with each product as the kernel issues it:
+    """The plain version's conv with each product as the kernel computes it:
     3 passes (small*big + big*small + big*big, fp32 accumulation) or a single
     TF32 pass."""
     def conv(x, w, b, stride=1, padding=0):
