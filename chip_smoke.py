@@ -27,9 +27,14 @@ Phases, each printing one JSON line:
              a simulated 300 kb genome at 30x; the kernel's launch count of
              that run, then the same weights on the CPU: records must agree
              in chrom, pos, ref, alt and GT, with qual within 1e-3 relative
-             (plus 1e-3 absolute).
+             (plus 1e-3 absolute);
+  hybrid_path  the same for two-BAM calling with the hybrid config (two read
+             convolvers, three experts, combiners, meta-expert) on a
+             simulated 150 kb Illumina + PacBio genome at 30x each (PacBio
+             reads 1500 bp): the kernel's launches for each read convolver
+             (both must be > 0), then the CPU comparison.
 
-Then a ``kernels`` line (every kernel with its launches on the main path,
+Then a ``kernels`` line (every kernel with its launches on both paths,
 error, times and bound), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script exits
 non-zero and prints no result.  Without a card, or outside a checkout, it
@@ -53,6 +58,7 @@ PEAKS = {"SXM": {"fp32": 67e12, "tf32": 495e12, "bytes": 3.35e12},
          "PCIe": {"fp32": 51e12, "tf32": 378e12, "bytes": 2.0e12}}
 
 GENOME_BP = 300_000
+HYBRID_GENOME_BP = 150_000
 COVERAGE = 30
 KERNEL_ALLELES = 2049
 KERNEL_READS = 32
@@ -241,14 +247,51 @@ def kernel_phase(name, channels, seed, mma_rate):
     return line
 
 
+def call_on_cpu(model_name, scorer, bams, fasta, out_cpu):
+    """The card's weights on the CPU (plain read-convolver version over
+    packed rows): returns (records, seconds)."""
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.pipeline.call import Scorer, call_genome
+
+    cpu_model = create_model(model_name)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               scorer.model.state_dict().items()})
+    cpu_scorer = Scorer(cpu_model, device="cpu", packed_conv=True)
+    t0 = time.perf_counter()
+    call_genome(bams, fasta, cpu_scorer, out_cpu)
+    return read_vcf(out_cpu), time.perf_counter() - t0
+
+
+def compare_records(card, cpu):
+    """Raise unless the card's records equal the CPU's; returns (largest
+    |qual difference|, qual there)."""
+    if not card:
+        raise AssertionError("the card's VCF is empty")
+    if len(cpu) != len(card):
+        raise AssertionError(f"{len(card)} records on the card, {len(cpu)} "
+                             "on the CPU")
+    worst = (0.0, 0.0)                       # (|qual diff|, qual there)
+    for a, b in zip(card, cpu):
+        if (a.chromosome, a.position, a.ref, a.alt, a.gt) != \
+                (b.chromosome, b.position, b.ref, b.alt, b.gt):
+            raise AssertionError(f"record differs: card {a} cpu {b}")
+        # qual = -10 log10(1 - p): one fp32 ulp of p moves a Q40 call by
+        # ~0.003, so qual is held to 1e-3 relative (+1e-3 absolute), as
+        # hello_tpu's tests hold two scoring routes to each other
+        if abs(a.qual - b.qual) > 1e-3 + 1e-3 * abs(b.qual):
+            raise AssertionError(f"qual differs: card {a} cpu {b}")
+        worst = max(worst, (abs(a.qual - b.qual), b.qual))
+    return worst
+
+
 def main_path_phase(workdir):
     import torch
 
     from hello_tpu_torch import native, sim, telemetry
     from hello_tpu_torch.io.vcf import read_vcf
-    from hello_tpu_torch.nn.moe import create_model
     from hello_tpu_torch.ops import read_conv as rc
-    from hello_tpu_torch.pipeline.call import Scorer, call_genome, load_scorer
+    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
 
     t0 = time.perf_counter()
     ds = sim.make_dataset(workdir, ref_length=GENOME_BP,
@@ -274,38 +317,70 @@ def main_path_phase(workdir):
     card_s = time.perf_counter() - t0
     launches = rc.read_conv_reduce.launches
     stages = telemetry.report()
-    card = read_vcf(out_card)
     if launches <= 0:
         raise AssertionError("the main path never launched read_conv_reduce")
-    if not card:
-        raise AssertionError("the card's VCF is empty")
-
-    cpu_model = create_model("illumina")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               scorer.model.state_dict().items()})
-    cpu_scorer = Scorer(cpu_model, device="cpu", packed_conv=True)
-    out_cpu = os.path.join(workdir, "cpu.vcf")
-    t0 = time.perf_counter()
-    call_genome(bam, ds.fasta, cpu_scorer, out_cpu)
-    cpu_s = time.perf_counter() - t0
-    cpu = read_vcf(out_cpu)
-    if len(cpu) != len(card):
-        raise AssertionError(f"{len(card)} records on the card, {len(cpu)} "
-                             "on the CPU")
-    worst = (0.0, 0.0)                       # (|qual diff|, qual there)
-    for a, b in zip(card, cpu):
-        if (a.chromosome, a.position, a.ref, a.alt, a.gt) != \
-                (b.chromosome, b.position, b.ref, b.alt, b.gt):
-            raise AssertionError(f"record differs: card {a} cpu {b}")
-        # qual = -10 log10(1 - p): one fp32 ulp of p moves a Q40 call by
-        # ~0.003, so qual is held to 1e-3 relative (+1e-3 absolute), as
-        # hello_tpu's tests hold two scoring routes to each other
-        if abs(a.qual - b.qual) > 1e-3 + 1e-3 * abs(b.qual):
-            raise AssertionError(f"qual differs: card {a} cpu {b}")
-        worst = max(worst, (abs(a.qual - b.qual), b.qual))
+    card = read_vcf(out_card)
+    cpu, cpu_s = call_on_cpu("illumina", scorer, bam, ds.fasta,
+                             os.path.join(workdir, "cpu.vcf"))
+    worst = compare_records(card, cpu)
     emit({"phase": "main_path", "model": "illumina",
           "genome_bp": GENOME_BP, "coverage": COVERAGE, "sim_seconds": sim_s,
           "native_build_seconds": native_s,
+          "sites": stats["sites"], "records": len(card),
+          "seconds": card_s, "windows_per_s": stats["sites"] / card_s,
+          "read_conv_reduce_launches": launches, "stages": stages,
+          "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
+          "records_equal": True, "max_qual_diff": worst[0],
+          "qual_at_max_diff": worst[1]})
+    return launches
+
+
+def hybrid_path_phase(workdir):
+    """Two-BAM calling with the hybrid config on the card, each read
+    convolver's kernel launches counted, then the CPU comparison."""
+    import torch
+
+    from hello_tpu_torch import sim, telemetry
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
+
+    t0 = time.perf_counter()
+    ds = sim.make_dataset(workdir, ref_length=HYBRID_GENOME_BP,
+                          num_variants=HYBRID_GENOME_BP // 1000,
+                          coverage=COVERAGE, read_length=150, seed=7,
+                          platforms=("illumina", "pacbio"),
+                          pacbio_read_length=1500)
+    sim_s = time.perf_counter() - t0
+    bams = [ds.bams["illumina"], ds.bams["pacbio"]]
+
+    scorer = load_scorer("hybrid", seed=0)           # cuda, highest
+    assert scorer.device.type == "cuda" and scorer.packed_conv
+    assert sorted(scorer.folded) == ["read_conv0", "read_conv1"]
+    out_card = os.path.join(workdir, "card.vcf")
+    stats = {}
+    telemetry.reset()
+    rc.read_conv_reduce.launches = 0
+    for folded in scorer.folded.values():
+        folded.launches = 0
+    t0 = time.perf_counter()
+    call_genome(bams, ds.fasta, scorer, out_card, stats=stats)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in scorer.folded.items()}
+    total = rc.read_conv_reduce.launches
+    stages = telemetry.report()
+    if min(launches.values()) <= 0 or total != sum(launches.values()):
+        raise AssertionError(f"the hybrid path's read_conv_reduce launches "
+                             f"{launches} (total {total}): each read "
+                             "convolver must launch the kernel")
+    card = read_vcf(out_card)
+    cpu, cpu_s = call_on_cpu("hybrid", scorer, bams, ds.fasta,
+                             os.path.join(workdir, "cpu.vcf"))
+    worst = compare_records(card, cpu)
+    emit({"phase": "hybrid_path", "model": "hybrid",
+          "genome_bp": HYBRID_GENOME_BP, "coverage": COVERAGE,
+          "pacbio_read_length": 1500, "sim_seconds": sim_s,
           "sites": stats["sites"], "records": len(card),
           "seconds": card_s, "windows_per_s": stats["sites"] / card_s,
           "read_conv_reduce_launches": launches, "stages": stages,
@@ -334,14 +409,16 @@ def main():
     lines = [kernel_phase("illumina", 6, seed=0, mma_rate=mma_rate),
              kernel_phase("pacbio_hp", 7, seed=1, mma_rate=mma_rate)]
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as workdir:
-        launches = main_path_phase(workdir)
+        launches = main_path_phase(os.path.join(workdir, "illumina"))
+        hybrid = hybrid_path_phase(os.path.join(workdir, "hybrid"))
     k6 = lines[0]
     emit({"kernels": [{
         "name": "read_conv_reduce", "route": "cuda",
         "source": "hello_tpu_torch/ops/csrc/read_conv.cu",
         "replaces": "hello_tpu/ops/read_conv.py:252",
         "also_replaces": "hello_tpu/ops/read_conv.py:263",
-        "launches": launches,
+        "launches": launches + sum(hybrid.values()),
+        "launches_by_path": {"main_path": launches, "hybrid_path": hybrid},
         "max_abs_err": max(line["max_abs_err"] for line in lines),
         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],

@@ -15,9 +15,9 @@ writes:
 So ``model.load_state_dict(sd, strict=True)`` is the weight bridge.
 
 Public activations stay NWC ``[batch, length, channels]`` as in the JAX
-package; the conv modules transpose to torch's NCW internally.  This slice
-ports the layers the single-tech configs use; ``build_network`` raises
-``NotImplementedError`` for the others.
+package; the conv modules transpose to torch's NCW internally.  The layers
+of the weight-normed single-tech and hybrid configs are ported;
+``build_network`` raises ``NotImplementedError`` for the others.
 """
 
 from __future__ import annotations
@@ -217,6 +217,26 @@ class LinearCombination(nn.Module):
         return result
 
 
+class ConcatenateChannels(nn.Module):
+    """Concatenate a tuple of NWC tensors along channels (``None`` entries
+    are skipped)."""
+
+    def forward(self, x):
+        return torch.cat([t for t in x if t is not None], dim=-1)
+
+
+class Transposer(nn.Module):
+    """Length<->channel transpose marker of the reference, which converts
+    ``[B, L, C]`` to torch's conv layout; the port's activations stay NWC
+    and its conv modules transpose internally, so this is the identity."""
+
+    def __init__(self, dim0=1, dim1=2):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
 class Sequential(nn.Module):
     """Layers applied in order, held as ``network.<i>`` (the reference's
     Network container)."""
@@ -267,14 +287,16 @@ _SIMPLE = {
     "SelectArgument": SelectArgument,
     "LinearCombination": LinearCombination,
     "AdaptiveAvgPool1d": AdaptiveAvgPool1d,
+    "ConcatenateChannels": ConcatenateChannels,
+    "Transposer": Transposer,
 }
 
 # layer types hello_tpu builds that this slice does not port yet
 _NOT_PORTED = {
     "BatchNorm1d", "LayerNormModule", "ELU", "SELU", "Sigmoid", "Softplus",
-    "Tanh", "Softmax", "Dropout", "AvgPool1d", "GlobalPool", "Transposer",
-    "ConcatenateChannels", "AdditiveLayer", "DotProduct", "Inception",
-    "MultiheadAttention", "HelloEncoder",
+    "Tanh", "Softmax", "Dropout", "AvgPool1d", "GlobalPool",
+    "AdditiveLayer", "DotProduct", "Inception", "MultiheadAttention",
+    "HelloEncoder",
 }
 
 _KW_DROP = {"inplace"}

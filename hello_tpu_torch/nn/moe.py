@@ -14,8 +14,19 @@ tensors, its plain PyTorch version for CPU tensors.  The dense grid is
 passed as rows ``reads.reshape(A*R, L, C)`` with ``row_allele = r // R`` and
 ``row_valid = read_mask``.
 
-This slice ports the single-tech configs (read_conv0 + compressor0 +
-xattn0: illumina, pacbio, pacbio_hp); hybrid configs raise.
+Model variants, selected by which networks the config holds:
+
+  * single-tech (illumina, pacbio, pacbio_hp): read_conv0 + compressor0 +
+    xattn0 -> one logit per allele;
+  * hybrid no-ensemble: both platforms' read convolvers and compressors,
+    combiners and xattn2 -> one logit per allele;
+  * hybrid (three experts) and hybrid_ensemble2 (two experts): per-platform
+    experts, plus xattn2 on the combiners where present, and the meta-expert's
+    softmax over the three experts per site.
+
+Hybrid batches add ``reads1`` / ``read_mask1`` (dense) or ``rows1`` /
+``row_allele1`` / ``row_valid1`` (packed); read_conv1 reduces them through
+the same kernel with its own folded weights.
 """
 
 from __future__ import annotations
@@ -29,9 +40,6 @@ from . import archs
 from .convert import _TORCH_ATTR
 from .layers import build_network
 from ..ops.read_conv import fold_read_conv_weights, read_conv_reduce
-
-ROADMAP_HYBRID = ("ROADMAP.md Queue 1 (the hybrid, hybrid_no_ensemble, "
-                  "pacbio and pacbio_hp configs)")
 
 
 def packed_read_reduce(frames, row_allele, row_valid, num_alleles):
@@ -65,8 +73,8 @@ def make_site_onehot(site_ids, allele_mask, num_sites):
 
 
 class MoEAttention(nn.Module):
-    """Single-tech MoE model; networks live under the reference's attribute
-    names (``read_convolver0``, ``compressor0``, ``xattn0``)."""
+    """MoE model (eval mode); networks live under the reference's attribute
+    names (``read_convolver0``, ``compressor0``, ``xattn0``, ...)."""
 
     NETWORK_NAMES = (
         "read_conv0", "read_conv1",
@@ -79,11 +87,8 @@ class MoEAttention(nn.Module):
         super().__init__()
         if config.get("read_conv0") is None:
             raise ValueError("read_conv0 is required")
-        if config.get("read_conv1") is not None:
-            raise NotImplementedError(
-                f"hybrid model configs are not ported yet ({ROADMAP_HYBRID})")
         self.config = config
-        self.hybrid = False
+        self.hybrid = config.get("read_conv1") is not None
         for name in self.NETWORK_NAMES:
             if config.get(name) is not None:
                 self.add_module(_TORCH_ATTR[name], build_network(config[name]))
@@ -98,10 +103,12 @@ class MoEAttention(nn.Module):
         return getattr(self, _TORCH_ATTR[name], None)
 
     def fold_read_convs(self):
-        """Folded read-convolver weights for the kernel (raises for a read
-        convolver it does not implement).  Compute once per parameter set
-        and pass to ``forward``."""
-        return {"read_conv0": fold_read_conv_weights(self.read_convolver0)}
+        """Folded weights of each read convolver for the kernel (raises for a
+        read convolver it does not implement).  Compute once per parameter
+        set and pass to ``forward``."""
+        return {name: fold_read_conv_weights(self.net(name))
+                for name in ("read_conv0", "read_conv1")
+                if self.net(name) is not None}
 
     def _compress_and_predict(self, idx, reduced_allele, site_onehot,
                               site_ids):
@@ -119,39 +126,79 @@ class MoEAttention(nn.Module):
         logits = None if xattn is None else xattn((ca, (expand0, expand1)))
         return logits, (cs0, cs1), ca
 
-    def forward(self, batch, folded=None):
-        """Eval-mode forward -> {"experts": [A, 1] raw logits, "meta": None}.
-
-        ``folded``: ``fold_read_convs()`` output (computed here when None)."""
-        if folded is None:
-            folded = self.fold_read_convs()
-        packed = "rows0" in batch
-        if packed:
-            A = batch["read_mask0"].shape[0]
-            rows = batch["rows0"]
-            row_allele = batch["row_allele0"]
-            row_valid = batch["row_valid0"]
+    def _read_reduce(self, batch, k, folded):
+        """Platform k's reads -> per-allele sum of read-convolver frames
+        [A, 36, 64], packed rows or the dense grid flattened to rows."""
+        if f"rows{k}" in batch:
+            A = batch[f"read_mask{k}"].shape[0]
+            rows = batch[f"rows{k}"]
+            row_allele = batch[f"row_allele{k}"]
+            row_valid = batch[f"row_valid{k}"]
         else:
-            reads = batch["reads0"]
+            reads = batch[f"reads{k}"]
             A, R = reads.shape[:2]
             rows = reads.reshape((A * R,) + tuple(reads.shape[2:]))
             row_allele = torch.div(
                 torch.arange(A * R, dtype=torch.int32, device=reads.device),
                 R, rounding_mode="floor")
-            row_valid = batch["read_mask0"].reshape(-1).float()
+            row_valid = batch[f"read_mask{k}"].reshape(-1).float()
+        return read_conv_reduce(rows, row_allele, row_valid,
+                                folded[f"read_conv{k}"], A)
+
+    def forward(self, batch, folded=None):
+        """Eval-mode forward -> {"experts": [A, E] raw logits, "meta": [S, 3]
+        softmax weights or None}; E is 1 (single-tech, hybrid no-ensemble) or
+        3 (experts 0, 1, 2; zeros for expert 2 when the config has none).
+
+        ``folded``: ``fold_read_convs()`` output (computed here when None)."""
+        if folded is None:
+            folded = self.fold_read_convs()
         S = batch["ref_segments"].shape[0]
         site_ids = batch["site_ids"].long()
         site_onehot = make_site_onehot(site_ids, batch["allele_mask"], S)
-        reduced0 = read_conv_reduce(rows, row_allele, row_valid,
-                                    folded["read_conv0"], A)
-        e0, _, _ = self._compress_and_predict(0, reduced0, site_onehot,
-                                              site_ids)
-        return {"experts": e0, "meta": None}
+        reduced0 = self._read_reduce(batch, 0, folded)
+        e0, f0, ca0 = self._compress_and_predict(0, reduced0, site_onehot,
+                                                 site_ids)
+        if not self.hybrid:
+            return {"experts": e0, "meta": None}
+
+        reduced1 = self._read_reduce(batch, 1, folded)
+        e1, f1, ca1 = self._compress_and_predict(1, reduced1, site_onehot,
+                                                 site_ids)
+        if self.net("compressor2") is not None:
+            # hybrid features straight from the summed read frames
+            e2, f2, _ = self._compress_and_predict(
+                2, reduced0 + reduced1, site_onehot, site_ids)
+            meta_site_frames = f2[0]
+        elif self.net("xattn2") is not None:
+            # combiner route: merge both platforms' compressed features
+            ca2 = self.combiner0((ca0, ca1))
+            cs2 = self.combiner1((f0[1], f1[1]))
+            e2 = self.xattn2((ca2, (None, cs2[site_ids])))
+            meta_site_frames = cs2
+        else:
+            e2 = None
+            meta_site_frames = site_segment_sum(reduced0 + reduced1,
+                                                site_onehot)
+
+        meta = None
+        if self.net("meta") is not None:
+            meta = torch.softmax(
+                self.meta((meta_site_frames, batch["ref_segments"].float())),
+                dim=-1)
+        if e0 is None and e1 is None:
+            # hybrid no-ensemble: expert 2's logit alone
+            return {"experts": e2, "meta": None}
+        if e2 is None:
+            # two experts under the meta softmax; expert 2 is zeros
+            e2 = torch.zeros_like(e0)
+        return {"experts": torch.cat([e0, e1, e2], dim=-1), "meta": meta}
 
 
 def create_model(name_or_config) -> MoEAttention:
-    """Create a model from a named config (illumina, pacbio, pacbio_hp) or an
-    explicit config dict; hybrid configs raise until their slice lands."""
+    """Create a model from a named config (illumina, pacbio, pacbio_hp,
+    hybrid, hybrid_no_ensemble, hybrid_ensemble2) or an explicit config
+    dict."""
     if isinstance(name_or_config, str):
         config = archs.NAMED_CONFIGS[name_or_config]()
     else:

@@ -27,7 +27,7 @@ hello_tpu's ``extract_read_conv_weights``) plus ``b[Co]``.  The kernel reads
 one flat buffer holding, per conv, ``W`` split into TF32 ``big`` and
 ``small`` parts in mma.sync A-fragment order (``pack_conv``), then ``b``.
 The topology gate raises for a read convolver the kernel does not
-implement.
+implement, naming the ROADMAP item that holds its kernel variant.
 """
 
 from __future__ import annotations
@@ -57,6 +57,11 @@ SOURCE = os.path.join(_HERE, "csrc", "read_conv.cu")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+#: ROADMAP item of the read convolvers the kernel does not implement yet
+ROADMAP_VARIANTS = ("ROADMAP.md Queue 1 item 14: kernel variants of "
+                    "read_conv_reduce for the wide, addendum and layer_norm "
+                    "configs")
 
 # expected (C_out, K*C_in) of every conv after the first, whose K*C_in
 # depends on the 6/7 input channels (hello_tpu ops/read_conv.py:427-432)
@@ -131,13 +136,15 @@ def check_read_convolver(seq: L.Sequential):
     batch-norm variants are refused, never routed around the kernel)."""
     if not _topology_matches(seq):
         raise ValueError("read convolver has layers the CUDA kernel does not "
-                         "implement (only WeightNormedConv1d/ReLU/MaxPool1d)")
+                         "implement (only WeightNormedConv1d/ReLU/MaxPool1d; "
+                         f"{ROADMAP_VARIANTS})")
     ws = extract_read_conv_weights(seq)
     shapes = [tuple(m.shape) for m in ws[0::2]]
     if (len(shapes) != NUM_CONVS or shapes[0] not in ((16, 18), (16, 21))
             or shapes[1:] != _EXPECTED_TAIL_SHAPES):
         raise ValueError(f"read convolver conv shapes {shapes} are not the "
-                         "width-1 topology the CUDA kernel implements")
+                         "width-1 topology the CUDA kernel implements "
+                         f"({ROADMAP_VARIANTS})")
     bias_free = [i for i, b in enumerate(ws[1::2]) if b is None]
     if bias_free:
         raise ValueError(f"convs {bias_free} have no bias; the kernel needs one")
@@ -147,17 +154,21 @@ def check_read_convolver(seq: L.Sequential):
              if isinstance(p, L.MaxPool1d)]
     if geometry != _EXPECTED_GEOMETRY or pools != [(3, 2, 0)]:
         raise ValueError(f"read convolver strides/paddings {geometry}, pools "
-                         f"{pools} are not what the CUDA kernel implements")
+                         f"{pools} are not what the CUDA kernel implements "
+                         f"({ROADMAP_VARIANTS})")
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(eq=False)
 class FoldedReadConv:
     """Folded read-convolver weights: ``convs`` holds the 18 ``(W [Co, K*Ci],
     b [Co])`` pairs; ``flat`` is the kernel's buffer (per conv the
-    ``pack_conv`` fragments, then ``b``, concatenated)."""
+    ``pack_conv`` fragments, then ``b``, concatenated).  ``launches`` counts
+    the kernel's launches with these weights (one read convolver's share of
+    ``read_conv_reduce.launches``)."""
     convs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     flat: torch.Tensor
     in_channels: int
+    launches: int = 0
 
 
 def padded_k(kc: int) -> int:
@@ -374,8 +385,9 @@ def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
 
     rows: uint8 [nb, 150, C]; row_allele: int32 [nb] (``A`` marks a padding
     row, dropped); row_valid: float32 [nb].  CUDA tensors launch the kernel
-    on the current stream (``read_conv_reduce.launches`` counts launches);
-    CPU tensors take ``read_conv_reduce_reference``."""
+    on the current stream (``read_conv_reduce.launches`` and
+    ``folded.launches`` count launches); CPU tensors take
+    ``read_conv_reduce_reference``."""
     if rows.device.type == "cpu":
         return read_conv_reduce_reference(rows, row_allele, row_valid,
                                           folded, num_alleles)
@@ -398,6 +410,7 @@ def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"read_conv_reduce launch failed: cudaError {err}")
     read_conv_reduce.launches += 1
+    folded.launches += 1
     return out
 
 

@@ -5,7 +5,10 @@ regions -> candidate intervals -> site tensors (the native host engine,
 shared with hello_tpu) -> batched scoring on the card (wire expansion, the
 MoE forward with the CUDA read-convolver kernel, genotype decode) -> sorted
 VCF.  ``call_region`` / ``call_genome`` are the library surface; ``main``
-is the CLI (``python -m hello_tpu_torch.pipeline.call``).
+is the CLI (``python -m hello_tpu_torch.pipeline.call``).  Two BAMs
+(Illumina, PacBio) call with a hybrid model; ``provide_experts``
+(``--provide_features``) adds the per-expert, best and mean VCF streams, the
+meta-expert's choices and the per-site features.
 
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); without a card the default raises instead of carrying
@@ -18,6 +21,7 @@ import argparse
 import dataclasses
 import logging
 import os
+import pickle
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -207,6 +211,17 @@ def _record_from_genotype(site: "SiteWork", top_alleles, quality, ref_lookup,
                        genotypes, ref_lookup, qual=quality, info=info)
 
 
+def record_from_pair_probs(site: "SiteWork", pair_probs, ref_lookup,
+                           info="MixtureOfExpertPrediction") -> Optional[VcfRecord]:
+    """VCF record from an allele-pair probability table
+    (reference caller_calling.vcfRecords:657-754 / prepareVcf.callAlleles)."""
+    from ..nn.genotype import best_genotype, phred_quality
+
+    top_alleles, best_p = best_genotype(pair_probs)
+    return _record_from_genotype(site, top_alleles, phred_quality(best_p),
+                                 ref_lookup, info)
+
+
 def vcf_record_from_call(call: dict, ref_lookup) -> Optional[VcfRecord]:
     """Build a VCF record from one decoded site call
     (reference caller_calling.vcfRecords:657-754 semantics)."""
@@ -215,6 +230,49 @@ def vcf_record_from_call(call: dict, ref_lookup) -> Optional[VcfRecord]:
     return _record_from_genotype(call["site"], call["best_pair"],
                                  call["quality"], ref_lookup,
                                  "MixtureOfExpertPrediction")
+
+
+#: the streams ``provide_experts`` adds: expert 0/1/2, best and mean records,
+#: the meta-expert's choice per site, and per-site feature dicts
+EXPERT_STREAMS = (0, 1, 2, "best", "mean", "choices", "features")
+
+
+def _add_expert_streams(call: dict, ref_lookup, streams: dict):
+    """Per-expert / best / mean records, the choice and the feature record
+    of one fully decoded site call (reference prepareVcf.py:112-182 and
+    caller_calling.py:744-754)."""
+    site = call["site"]
+    meta_w = np.asarray(call["meta"], dtype=np.float64)
+    per_expert = call["expert_pair_probs"]
+    recs = [record_from_pair_probs(site, pp, ref_lookup,
+                                   info=f"HELLO_expert{k}")
+            for k, pp in enumerate(per_expert)]
+    for k, rec in enumerate(recs):
+        if rec is not None:
+            streams[k].append(rec)
+    choice = int(np.argmax(meta_w[:3]))
+    if recs[choice] is not None:
+        streams["best"].append(recs[choice])
+    # meta-weighted mean of the experts' pair probabilities
+    mean_probs = {pair: float(sum(meta_w[i] * float(per_expert[i][pair])
+                                  for i in range(len(per_expert))))
+                  for pair in per_expert[0]}
+    mean_rec = record_from_pair_probs(site, mean_probs, ref_lookup,
+                                      info="HELLO_mean")
+    if mean_rec is not None:
+        streams["mean"].append(mean_rec)
+    streams["choices"].append((site.chromosome, site.start, site.stop,
+                               choice))
+    streams["features"].append({
+        "chromosome": site.chromosome,
+        "position": site.start,
+        "length": site.stop - site.start,
+        "alleles": list(site.alleles),
+        "meta": np.asarray(call["meta"]),
+        "expertPredictions": tuple(per_expert),
+        "bestPair": call["best_pair"],
+        "quality": call["quality"],
+    })
 
 
 def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
@@ -226,8 +284,12 @@ def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
                 feature_length: int = FEATURE_LENGTH,
                 max_alleles_per_batch: int = 2048,
                 seed: int = 13,
-                stats: Optional[dict] = None) -> List[VcfRecord]:
-    """Call variants in one region; returns normalised VCF records.
+                provide_experts: bool = False,
+                stats: Optional[dict] = None):
+    """Call variants in one region; returns normalised VCF records, or
+    ``(records, streams)`` with ``provide_experts`` (``streams`` keyed by
+    ``EXPERT_STREAMS``; those sites are scored to full logits and decoded on
+    the host).
 
     ``stats`` (optional dict) accumulates ``sites``/``records`` counts for
     throughput accounting."""
@@ -255,7 +317,8 @@ def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
                 hybrid_hotspot=hybrid_hotspot, q_threshold=q_threshold, min_mapq=min_mapq)
         logger.info("%s:%d-%d: %d hotspot positions", chromosome, start, stop, len(positions))
         if not positions:
-            return []
+            return (([], {k: [] for k in EXPERT_STREAMS}) if provide_experts
+                    else [])
 
         with telemetry.stage("candidate_intervals"):
             active = cluster_hotspots(positions)
@@ -281,6 +344,8 @@ def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
 
     ref_lookup = lambda chrom, pos: ref.fetch(chrom, pos, pos + 1)
     records: List[VcfRecord] = []
+    streams = ({k: [] for k in EXPERT_STREAMS} if provide_experts
+               else None)
     hybrid_model = scorer.model.hybrid
 
     def _decode_entry(group, batch, fin):
@@ -292,11 +357,13 @@ def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
             else:
                 experts, meta = fin
                 calls = decode_batch(experts, meta, batch.allele_site_index,
-                                     group, full=False)
+                                     group, full=provide_experts)
             for call in calls:
                 rec = vcf_record_from_call(call, ref_lookup)
                 if rec is not None:
                     records.append(rec)
+                if streams is not None and call is not None:
+                    _add_expert_streams(call, ref_lookup, streams)
 
     # Pipelined scoring: dispatch runs ahead of the device; a drainer thread
     # (parallel_call._AsyncDrainer) waits for results and decodes behind.
@@ -328,8 +395,9 @@ def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
                                        channels0=7 if include_hp else 6,
                                        channels1=7 if include_hp else 6)
             with telemetry.stage("device_scoring"):
-                # decode on the device when the scorer's device_decode is on
-                out = scorer.score_async(batch, decode=True)
+                # decode on the device when the scorer's device_decode is on;
+                # the expert streams need the full logits on the host
+                out = scorer.score_async(batch, decode=not provide_experts)
             drainer.put(group, batch, out)
         body_ok = True
     finally:
@@ -348,22 +416,56 @@ def call_region(bam_paths: Sequence[str], ref: FastaFile, chromosome: str,
     records.sort(key=lambda r: r.key())
     if stats is not None:
         stats["records"] = stats.get("records", 0) + len(records)
-    return records
+    if streams is None:
+        return records
+    for k, lst in streams.items():
+        if k == "features":
+            lst.sort(key=lambda f: (f["chromosome"], f["position"]))
+        elif k == "choices":
+            lst.sort(key=lambda c: (c[0], c[1]))
+        else:
+            lst.sort(key=lambda r: r.key())
+    return records, streams
 
 
 def call_genome(bam_paths: Sequence[str], ref_path: str, scorer: Scorer,
                 out_vcf: str, regions: Optional[Sequence[Tuple[str, int, int]]] = None,
-                **kwargs) -> str:
-    """Call variants across regions (default: every chromosome) into a VCF."""
+                provide_experts: bool = False, **kwargs) -> str:
+    """Call variants across regions (default: every chromosome) into a VCF.
+
+    With ``provide_experts``, also writes beside ``out_vcf`` (``<base>`` is
+    its path without ``.vcf``): ``<base>.expert{0,1,2}.vcf``,
+    ``<base>.best.vcf`` (the meta-expert's pick per site), ``<base>.mean.vcf``
+    (meta-weighted mean), ``<base>.choices.bed`` and ``<base>.features.pkl``
+    (reference prepareVcf.py:112-182, caller_calling.py:744-754)."""
     ref = FastaFile(ref_path)      # also persists the .fai when missing
     if regions is None:
         regions = [(c, 0, ref.length(c)) for c in ref.chromosomes()]
     records: List[VcfRecord] = []
+    streams = {k: [] for k in EXPERT_STREAMS}
     for chrom, start, stop in regions:
-        records.extend(call_region(bam_paths, ref, chrom, start, stop, scorer,
-                                   **kwargs))
+        result = call_region(bam_paths, ref, chrom, start, stop, scorer,
+                             provide_experts=provide_experts, **kwargs)
+        if provide_experts:
+            result, region_streams = result
+            for k in EXPERT_STREAMS:
+                streams[k].extend(region_streams[k])
+        records.extend(result)
     contigs = {c: ref.length(c) for c in ref.chromosomes()}
     write_vcf(out_vcf, records, contigs=contigs, sort=True)
+    if provide_experts:
+        base = out_vcf[:-4] if out_vcf.endswith(".vcf") else out_vcf
+        for k in (0, 1, 2):
+            write_vcf(f"{base}.expert{k}.vcf", streams[k], contigs=contigs,
+                      sort=True)
+        for name in ("best", "mean"):
+            write_vcf(f"{base}.{name}.vcf", streams[name], contigs=contigs,
+                      sort=True)
+        with open(f"{base}.choices.bed", "w") as fh:
+            for chrom, start, stop, choice in sorted(streams["choices"]):
+                fh.write(f"{chrom}\t{start}\t{stop}\t{choice}\n")
+        with open(f"{base}.features.pkl", "wb") as fh:
+            pickle.dump(streams["features"], fh)
     return out_vcf
 
 
@@ -393,11 +495,13 @@ def load_scorer(model_name: str, checkpoint: Optional[str] = None,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="hello_tpu_torch variant caller (PyTorch / CUDA)")
-    parser.add_argument("--bam", required=True, help="illumina BAM")
+    parser.add_argument("--bam", required=True,
+                        help="comma-separated BAMs (illumina[,pacbio])")
     parser.add_argument("--ref", required=True, help="reference FASTA")
     parser.add_argument("--out", required=True, help="output VCF path")
     parser.add_argument("--model", default="illumina",
-                        help="model config: illumina|pacbio|pacbio_hp")
+                        help="model config: illumina|pacbio|pacbio_hp|hybrid|"
+                             "hybrid_no_ensemble|hybrid_ensemble2")
     parser.add_argument("--checkpoint", default=None,
                         help="torch state dict (.pt) or hello_tpu pytree "
                              "checkpoint; default: seeded random weights")
@@ -420,7 +524,8 @@ def main(argv=None):
     parser.add_argument("--num_workers", type=int, default=0,
                         help="host worker processes; only 0 is ported")
     parser.add_argument("--provide_features", action="store_true",
-                        help="per-expert VCF streams (not ported yet)")
+                        help="also write per-expert, best and mean VCFs, the "
+                             "meta-expert's choices and per-site features")
     parser.add_argument("--profile_dir", default=None,
                         help="device trace directory (not ported yet)")
     parser.add_argument("--log", default=None)
@@ -435,14 +540,9 @@ def main(argv=None):
     if args.num_workers != 0:
         parser.error(f"--num_workers > 0 (call_parallel) is not ported yet "
                      f"({ROADMAP_WAITS})")
-    if args.provide_features:
-        parser.error(f"--provide_features is not ported yet ({ROADMAP_WAITS})")
     if args.profile_dir:
         parser.error(f"--profile_dir is not ported yet ({ROADMAP_WAITS})")
     bams = args.bam.split(",")
-    if len(bams) != 1:
-        parser.error(f"hybrid (two-BAM) calling is not ported yet "
-                     f"({ROADMAP_WAITS})")
     for bam in bams:
         if not os.path.exists(bam):
             parser.error(f"BAM not found: {bam}")
@@ -464,11 +564,16 @@ def main(argv=None):
 
     scorer = load_scorer(args.model, args.checkpoint, seed=args.seed,
                          device=args.device)
+    want = 2 if scorer.model.hybrid else 1
+    if len(bams) != want:
+        parser.error(f"--model {args.model} takes {want} BAM(s) "
+                     f"(illumina[,pacbio]), got {len(bams)}")
     call_genome(bams, args.ref, scorer, args.out, regions=regions,
                 pacbio=args.pacbio, include_hp=args.include_hp,
                 hybrid_hotspot=args.hybrid_hotspot,
                 q_threshold=args.q_threshold, min_mapq=args.mapq_threshold,
-                reassembly_size=args.reconcilement_size)
+                reassembly_size=args.reconcilement_size,
+                provide_experts=args.provide_features)
     telemetry.log_report()
     logger.info("Completed running the script")
 

@@ -3,7 +3,8 @@ against hello_tpu (CPU).
 
   * the port's copied host packers give the same wire as hello_tpu's;
   * ``expand_compact`` / ``expand_compact_packed`` rebuild byte-identical
-    tensors from the same wire dicts (modelled on tests/test_coded_wire.py);
+    tensors from the same wire dicts (modelled on tests/test_coded_wire.py),
+    single-platform and two-platform (hybrid) wires;
   * ``decode_pairs_device`` picks the same winners as hello_tpu's, with
     saturated logits and exact ties included.
 """
@@ -24,11 +25,15 @@ from hello_tpu_torch.pipeline import compact
 
 torch.set_num_threads(1)
 
-CASES = [(("illumina",), False), (("pacbio",), True)]
+CASES = [(("illumina",), False), (("pacbio",), True),
+         (("illumina", "pacbio"), False)]
 
 
-@pytest.fixture(scope="module", params=CASES, ids=["illumina", "pacbio_hp"])
+@pytest.fixture(scope="module", params=CASES,
+                ids=["illumina", "pacbio_hp", "hybrid"])
 def sites(request, tmp_path_factory):
+    """(sites, hp, hybrid) of a simulated genome; the hybrid case packs both
+    platforms' rows (codes0 and codes1)."""
     platforms, hp = request.param
     out = tmp_path_factory.mktemp("wire")
     ds = sim.make_dataset(str(out), ref_length=20_000, num_variants=40,
@@ -37,10 +42,10 @@ def sites(request, tmp_path_factory):
     options = {"include_hp": hp}
     if platforms == ("pacbio",):
         options["pacbio"] = True
-    got = host_sites_for_chunk([ds.bams[platforms[0]]], ds.fasta,
+    got = host_sites_for_chunk([ds.bams[p] for p in platforms], ds.fasta,
                                ds.chromosome, 0, 20_000, options)
     assert len(got) >= 10
-    return got, hp
+    return got, hp, len(platforms) > 1
 
 
 def _torch_dict(d):
@@ -57,11 +62,11 @@ def _assert_same(got, want):
 
 
 def test_port_packers_equal_jax_packers(sites):
-    sites, _ = sites
+    sites, _, hybrid = sites
     want = jax_compact.pack_sites_wire(jax_compact.encode_chunk_sites(sites),
-                                       hybrid=False)
+                                       hybrid=hybrid)
     got = compact.pack_sites_wire(compact.encode_chunk_sites(sites),
-                                  hybrid=False)
+                                  hybrid=hybrid)
     assert got.allele_site_index == want.allele_site_index
     assert got.num_sites == want.num_sites
     assert sorted(got.wire) == sorted(want.wire)
@@ -69,31 +74,35 @@ def test_port_packers_equal_jax_packers(sites):
         np.testing.assert_array_equal(got.wire[k], v, err_msg=k)
 
 
-def _wire(sites, hp, kind):
+def _wire(sites, hp, hybrid, kind):
     if kind == "coded":
         return jax_compact.pack_sites_wire(
-            jax_compact.encode_chunk_sites(sites), hybrid=False).wire
-    dense = pack_sites(sites, hybrid=False, channels0=7 if hp else 6)
+            jax_compact.encode_chunk_sites(sites), hybrid=hybrid).wire
+    channels = 7 if hp else 6
+    dense = pack_sites(sites, hybrid=hybrid, channels0=channels,
+                       channels1=channels)
     return jax_compact.compact_batch(dense)
 
 
 @pytest.mark.parametrize("wire", ["coded", "compact_batch"])
 def test_expand_compact_byte_exact(sites, wire):
-    sites, hp = sites
-    d = _wire(sites, hp, wire)
+    sites, hp, hybrid = sites
+    d = _wire(sites, hp, hybrid, wire)
     want = jax_compact.expand_compact({k: np.asarray(v) for k, v in d.items()})
     got = compact.expand_compact(_torch_dict(d))
     _assert_same(got, want)
     assert got["reads0"].shape[-1] == (7 if hp else 6)
+    assert ("reads1" in got) == hybrid
 
 
 def test_expand_compact_packed_byte_exact(sites):
-    sites, hp = sites
-    d = _wire(sites, hp, "coded")
+    sites, hp, hybrid = sites
+    d = _wire(sites, hp, hybrid, "coded")
     want = jax_compact.expand_compact_packed(
         {k: np.asarray(v) for k, v in d.items()})
     got = compact.expand_compact_packed(_torch_dict(d))
     _assert_same(got, want)
+    assert ("rows1" in got) == hybrid
 
 
 def _layout(rng, counts, A, S, e_dim):

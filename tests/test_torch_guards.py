@@ -92,7 +92,7 @@ def test_scorer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--precision", "bf16"], ["--precision", "default"],
-    ["--num_workers", "2"], ["--provide_features"],
+    ["--num_workers", "2"], ["--profile_dir", "x"],
 ])
 def test_cli_rejects_unported_options(tmp_path, capsys, flags):
     from hello_tpu_torch.pipeline.call import main
@@ -103,6 +103,23 @@ def test_cli_rejects_unported_options(tmp_path, capsys, flags):
         main(["--bam", str(bam), "--ref", str(bam), "--out",
               str(tmp_path / "x.vcf"), "--device", "cpu"] + flags)
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("model,bams", [("illumina", 2), ("hybrid", 1)])
+def test_cli_bam_count_must_match_model(tmp_path, capsys, model, bams):
+    """A hybrid model takes two BAMs (illumina,pacbio), a single-tech model
+    one."""
+    from hello_tpu_torch.pipeline.call import main
+
+    paths = []
+    for i in range(bams):
+        paths.append(tmp_path / f"{i}.bam")
+        paths[-1].write_bytes(b"")
+    with pytest.raises(SystemExit):
+        main(["--bam", ",".join(map(str, paths)), "--ref", str(paths[0]),
+              "--out", str(tmp_path / "x.vcf"), "--model", model,
+              "--device", "cpu"])
+    assert "BAM" in capsys.readouterr().err
 
 
 def test_unported_precision_and_layers_raise():

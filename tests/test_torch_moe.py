@@ -3,7 +3,10 @@
 Dense batches and packed-row batches go through hello_tpu's
 ``MoEAttention.apply`` and the port's module with the same weights; the port
 reduces both layouts through ``read_conv_reduce`` (its plain version on the
-CPU).  fp32 on both sides: rtol 1e-4 / atol 1e-4 on the expert logits.
+CPU).  fp32 on both sides: rtol 1e-4 / atol 1e-4 on the expert logits and
+on the meta-expert's softmax.  The hybrid configs run with alleles that
+have rows in one platform only, and with batches where platform 1 ships no
+rows at all.
 """
 
 import numpy as np
@@ -15,7 +18,7 @@ import jax.numpy as jnp
 
 from hello_tpu.nn import layers as jax_layers
 from hello_tpu.nn import moe as jax_moe
-from hello_tpu_torch.nn import moe
+from hello_tpu_torch.nn import archs, moe
 from hello_tpu_torch.nn.convert import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -124,8 +127,106 @@ def test_reductions_match_jax(rng, fn):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["hybrid", "hybrid_no_ensemble",
+def _hybrid_config(name):
+    """A named hybrid config, or "compressor2": both platforms' experts plus
+    expert 2 on compressor2 over the summed read frames, and the meta-expert
+    on its site features (the route no named config takes)."""
+    if name != "compressor2":
+        return archs.NAMED_CONFIGS[name]()
+    config = archs.config_hybrid_full()
+    del config["combiner0"], config["combiner1"]
+    config["compressor2"] = archs.compressor_conv(True)
+    return config
+
+
+HYBRID_CONFIGS = ["hybrid", "hybrid_no_ensemble", "hybrid_ensemble2",
+                  "compressor2"]
+
+
+@pytest.fixture(scope="module", params=HYBRID_CONFIGS)
+def hybrid_models(request):
+    jax_layers.set_precision("highest")
+    jm = jax_moe.create_model(_hybrid_config(request.param))
+    params, state = jm.init(jax.random.PRNGKey(11))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tm = moe.create_model(_hybrid_config(request.param))
+    tm.load_state_dict(state_dict_from_jax(tm, params, state), strict=True)
+    assert tm.hybrid and jm.hybrid
+    return request.param, jm, params, state, tm.eval()
+
+
+def _hybrid_batch(rng, layout, case):
+    """Two platforms over the _site_layout slots.  "mixed": allele 1 has rows
+    in platform 0 only, allele 2 in platform 1 only, allele 3 in neither;
+    "p1_empty": platform 1 ships no rows (an all-zero mask; no packed rows
+    at all)."""
+    A, R, S = 8, 6, 4
+    site_ids, allele_mask, _ = _site_layout(A, S)
+    ref_segments = np.eye(5, dtype=np.float32)[rng.randint(0, 5, (S, 150))]
+    counts0 = [3, 2, 0, 0, 4, 1]
+    counts1 = [2, 0, 3, 0, 1, 2] if case == "mixed" else [0] * 6
+    batch = {"site_ids": site_ids, "allele_mask": allele_mask,
+             "ref_segments": ref_segments}
+    for k, counts in ((0, counts0), (1, counts1)):
+        if layout == "dense":
+            mask = np.zeros((A, R), np.float32)
+            for a, c in enumerate(counts):
+                mask[a, :c] = 1.0
+            batch[f"reads{k}"] = rng.randint(
+                0, 255, (A, R, 150, 6)).astype(np.uint8)
+            batch[f"read_mask{k}"] = mask
+            continue
+        n_pad = 3 if sum(counts) else 0
+        row_allele = np.concatenate([np.full(c, a, np.int32)
+                                     for a, c in enumerate(counts)]
+                                    + [np.full(n_pad, A, np.int32)])
+        batch[f"rows{k}"] = rng.randint(
+            0, 255, (len(row_allele), 150, 6)).astype(np.uint8)
+        batch[f"row_allele{k}"] = row_allele
+        batch[f"row_valid{k}"] = (row_allele < A).astype(np.float32)
+        batch[f"read_mask{k}"] = np.zeros((A, R), np.uint8)
+    return batch
+
+
+@pytest.mark.parametrize("case", ["mixed", "p1_empty"])
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+def test_hybrid_experts_and_meta_match_jax(hybrid_models, rng, layout, case):
+    name, jm, params, state, tm = hybrid_models
+    batch = _hybrid_batch(rng, layout, case)
+    want, _ = jm.apply(params, state,
+                       {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got = tm({k: torch.from_numpy(v) for k, v in batch.items()})
+    experts = {"hybrid_no_ensemble": 1}.get(name, 3)
+    assert tuple(got["experts"].shape) == (8, experts)
+    np.testing.assert_allclose(got["experts"].numpy(),
+                               np.asarray(want["experts"]),
+                               rtol=1e-4, atol=1e-4)
+    if name == "hybrid_no_ensemble":
+        assert got["meta"] is None and want["meta"] is None
+        return
+    assert tuple(got["meta"].shape) == (4, 3)
+    np.testing.assert_allclose(got["meta"].numpy(), np.asarray(want["meta"]),
+                               rtol=1e-4, atol=1e-4)
+    if name == "hybrid_ensemble2":
+        assert not got["experts"][:, 2].any()
+
+
+def test_fold_read_convs_covers_both_platforms():
+    tm = moe.create_model("hybrid")
+    folded = tm.fold_read_convs()
+    assert sorted(folded) == ["read_conv0", "read_conv1"]
+    assert folded["read_conv0"] is not folded["read_conv1"]
+    assert folded["read_conv0"].launches == folded["read_conv1"].launches == 0
+
+
+@pytest.mark.parametrize("name", ["illumina_wide", "illumina_addendum",
+                                  "hybrid_no_ensemble_wide",
+                                  "hybrid_no_ensemble_addendum",
                                   "illumina_layer_norm"])
 def test_unported_configs_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.create_model(name)
+    """Configs whose read convolver the kernel does not implement fail,
+    naming the ROADMAP item, when the model is built or its read convolvers
+    are folded for the kernel (the Scorer folds at construction)."""
+    with pytest.raises((NotImplementedError, ValueError), match="ROADMAP"):
+        moe.create_model(name).fold_read_convs()
