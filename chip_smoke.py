@@ -7,21 +7,26 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc builds every kernel of the main path from the checkout's
-             sources (ops/csrc/read_conv.cu), and the mma probe
-             (ops/csrc/mma_probe.cu), in parallel; reports ptxas' resources,
-             the read rows, dynamic shared memory and threads per block and
-             the resident blocks per SM;
-  probe      the card's rate of mma.sync m16n8k8 TF32, the read-conv
-             kernel's product instruction, at the kernel's 8 warps per SM:
-             the ceiling of its tensor-core work short of wgmma;
-  kernel     read_conv_reduce (CUDA) against its plain PyTorch version on the
-             card, fp32 with TF32 off, for C = 6 and C = 7, at ~40k packed
-             rows (2049 alleles, an odd A, at 32-read buckets and ~60%
-             occupancy, with padding rows and fully masked alleles); error,
-             kernel and plain medians, and the bounds from this run's inputs:
-             fp32 FMA, 3xTF32 on the tensor cores (the kernel's route, and
-             its bound_ms), 3xTF32 at the probe's mma.sync rate, and a single
-             TF32 pass;
+             sources (ops/csrc/read_conv.cu, all three routes), and the mma
+             probe (ops/csrc/mma_probe.cu), in parallel; reports ptxas'
+             resources, the read rows, dynamic shared memory and threads per
+             block and the resident blocks per SM of each route;
+  probe      the card's rates of mma.sync m16n8k8 TF32 and m16n8k16 bf16, the
+             read-conv kernel's product instructions, at the kernel's 8 warps
+             per SM: the ceilings of its tensor-core work short of wgmma;
+  kernel     each route of read_conv_reduce (CUDA) against its plain PyTorch
+             version on the card, for C = 6 and C = 7, at ~40k packed rows
+             (2049 alleles, an odd A, at 32-read buckets and ~60% occupancy,
+             with padding rows and fully masked alleles, which must come out
+             exactly 0): tf32x3 (highest) within rtol 1e-4 / atol 1e-3 of
+             the fp32 plain version (TF32 off); tf32 (default) with a max abs
+             error against the fp32 plain version at most 2x that of the
+             plain version run by cuDNN in TF32; bf16 with a max abs
+             difference from its bf16 plain version at most 1/4 of that
+             plain version's from fp32.  Kernel and plain medians, and the
+             bounds from this run's inputs (the route's passes at the
+             published tensor-core peak, its bound_ms; at the probe's
+             mma.sync rate; fp32 FMA);
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -32,10 +37,23 @@ Phases, each printing one JSON line:
              convolvers, three experts, combiners, meta-expert) on a
              simulated 150 kb Illumina + PacBio genome at 30x each (PacBio
              reads 1500 bp): the kernel's launches for each read convolver
-             (both must be > 0), then the CPU comparison.
+             (both must be > 0), then the CPU comparison;
+  parallel_path  call_parallel, in-process, with 4 host worker processes and
+             100 kb chunks, on a simulated ~600 kb Illumina genome at 30x, at
+             the CLI's default precision bf16 on the card: the bf16 route's
+             launches (> 0, and no other route's), then the same weights at
+             bf16 and at highest on the CPU: card and CPU at bf16 with no site
+             flips, genotype flips at most 0.2% of the records, and dQ at
+             most 2x the CPU's bf16-against-highest dQ at the worst site and
+             0.5x at the median site (bf16 is chaotic in the order of fp32
+             sums: see the phase's comment).  The same pool then calls the genome
+             at highest and at default on the card (each leg launching its
+             own route only), and the phase reports the card's site flips,
+             genotype flips and largest dQ of bf16 and of default against
+             highest, from the port's precision sweep compare().
 
-Then a ``kernels`` line (every kernel with its launches on both paths,
-error, times and bound), the nvidia-smi line, and as the last line
+Then a ``kernels`` line (every route of the kernel with its launches on
+each path, error, times and bound), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script exits
 non-zero and prints no result.  Without a card, or outside a checkout, it
 exits non-zero at once.
@@ -53,12 +71,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(ROOT, "hello_tpu_torch", "ops", "csrc", "mma_probe.cu")
 
 # published peaks (NVIDIA data sheets, dense): fp32 outside the tensor
-# cores, TF32 on the tensor cores, and memory bandwidth, by card
-PEAKS = {"SXM": {"fp32": 67e12, "tf32": 495e12, "bytes": 3.35e12},
-         "PCIe": {"fp32": 51e12, "tf32": 378e12, "bytes": 2.0e12}}
+# cores, TF32 and bf16 on the tensor cores, and memory bandwidth, by card
+PEAKS = {"SXM": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12,
+                 "bytes": 3.35e12},
+         "PCIe": {"fp32": 51e12, "tf32": 378e12, "bf16": 756e12,
+                  "bytes": 2.0e12}}
+
+#: read-conv kernel routes: tensor-core passes per product, their peak and
+#: the probe that measures their instruction's rate
+ROUTES = {"tf32x3": (3, "tf32", "mma_tf32_probe"),
+          "tf32": (1, "tf32", "mma_tf32_probe"),
+          "bf16": (1, "bf16", "mma_bf16_probe")}
 
 GENOME_BP = 300_000
 HYBRID_GENOME_BP = 150_000
+PARALLEL_GENOME_BP = 600_000
+PARALLEL_WORKERS = 4
+PARALLEL_CHUNK = 100_000
 COVERAGE = 30
 KERNEL_ALLELES = 2049
 KERNEL_READS = 32
@@ -116,8 +145,8 @@ def device_phase():
 
 
 def build_phase():
-    """Build the kernel and the probe, one nvcc each, started together;
-    returns the probe's library."""
+    """Build the kernel (all routes, one source) and the probe, one nvcc
+    each, started together; returns the probe's library."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hello_tpu_torch.ops import read_conv as rc
@@ -130,40 +159,49 @@ def build_phase():
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": seconds,
           "library": os.path.relpath(path, ROOT), "ptxas": ptxas,
-          "launch": {c: rc.kernel_info(c) for c in (6, 7)}})
+          "launch": {f"{route}_C{c}": rc.kernel_info(c, route)
+                     for route in ROUTES for c in (6, 7)}})
     return probe
 
 
 def probe_phase(probe):
-    """mma.sync TF32 rate (FLOP/s) at one 256-thread block per SM."""
+    """mma.sync rates (FLOP/s) of the TF32 and bf16 products at one
+    256-thread block per SM; returns {probe function: rate}."""
     import ctypes
 
     import torch
 
     lib = ctypes.CDLL(probe)
-    lib.mma_tf32_probe.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
-    lib.mma_tf32_probe.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     threads, iters = 256, 4096
     out = torch.empty(sms * threads, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    ms = ctypes.c_float()
-    times = []
-    for _ in range(5):
-        err = lib.mma_tf32_probe(sms, threads, iters, out.data_ptr(), stream,
-                                 ctypes.byref(ms))
-        if err != 0:
-            raise RuntimeError(f"mma probe failed: cudaError {err}")
-        times.append(ms.value)
-    # each m16n8k8 is 16 * 8 * 8 multiply-adds; 12 per warp per iteration
-    flop = 2 * 16 * 8 * 8 * 12 * iters * sms * threads // 32
-    rate = flop / statistics.median(times) * 1e3
-    peak = card_peaks(torch.cuda.get_device_name(0))["tf32"]
-    emit({"phase": "probe", "instruction": "mma.sync.m16n8k8.tf32",
-          "warps_per_sm": threads // 32, "ms": statistics.median(times),
-          "tflop_per_s": rate / 1e12, "share_of_tf32_peak": rate / peak})
-    return rate
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    rates = {}
+    for fn, instr, k, peak in (
+            ("mma_tf32_probe", "mma.sync.m16n8k8.tf32", 8, "tf32"),
+            ("mma_bf16_probe", "mma.sync.m16n8k16.bf16", 16, "bf16")):
+        f = getattr(lib, fn)
+        f.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+        f.restype = ctypes.c_int
+        ms = ctypes.c_float()
+        times = []
+        for _ in range(5):
+            err = f(sms, threads, iters, out.data_ptr(), stream,
+                    ctypes.byref(ms))
+            if err != 0:
+                raise RuntimeError(f"{fn} failed: cudaError {err}")
+            times.append(ms.value)
+        # each mma is 16 * 8 * k multiply-adds; 12 per warp per iteration
+        flop = 2 * 16 * 8 * k * 12 * iters * sms * threads // 32
+        rate = flop / statistics.median(times) * 1e3
+        rates[fn] = rate
+        emit({"phase": "probe", "instruction": instr,
+              "warps_per_sm": threads // 32, "ms": statistics.median(times),
+              "tflop_per_s": rate / 1e12,
+              f"share_of_{peak}_peak": rate / peaks[peak]})
+    return rates
 
 
 def kernel_inputs(rng, channels, device):
@@ -188,8 +226,25 @@ def kernel_inputs(rng, channels, device):
     return to(rows), to(row_allele), to(row_valid), A, zero_alleles
 
 
-def kernel_phase(name, channels, seed, mma_rate):
-    """Kernel against the plain version; returns the kernel line's numbers."""
+def _plain(rows, row_allele, row_valid, folded, A, tf32):
+    """The plain version on the card, cuDNN's TF32 on or off."""
+    import torch
+
+    from hello_tpu_torch.ops import read_conv as rc
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        with torch.no_grad():
+            return rc.read_conv_reduce_reference(rows, row_allele, row_valid,
+                                                 folded, A)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def kernel_phase(name, channels, seed, rates):
+    """Every route of the kernel against its plain version; returns
+    {route: the kernel line's numbers}."""
     import numpy as np
     import torch
 
@@ -199,57 +254,75 @@ def kernel_phase(name, channels, seed, mma_rate):
 
     model = init_params(create_model(name),
                         torch.Generator().manual_seed(seed)).cuda()
-    folded = model.fold_read_convs()["read_conv0"]
     rows, row_allele, row_valid, A, zero_alleles = kernel_inputs(
         np.random.RandomState(seed), channels, "cuda")
-    run = lambda: rc.read_conv_reduce(rows, row_allele, row_valid, folded, A)
-    plain = lambda: rc.read_conv_reduce_reference(rows, row_allele, row_valid,
-                                                  folded, A)
-    got = run()
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        want = plain()
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    big = want.abs() >= 1e-3
-    max_rel = (err[big] / want.abs()[big]).max().item() if big.any() else 0.0
-    ok = torch.allclose(got, want, rtol=1e-4, atol=1e-3)
-    zeros_exact = bool((got[torch.from_numpy(zero_alleles).cuda()] == 0).all())
-    if not (ok and zeros_exact and torch.isfinite(got).all()):
-        raise AssertionError(f"kernel disagrees with the plain version (C={channels}): "
-                             f"max abs {err.max().item()}, max rel {max_rel}, "
-                             f"masked alleles zero: {zeros_exact}")
-    ms = time_ms(run, 20)
-    with torch.no_grad():
-        plain_ms = time_ms(plain, 5)
+    zero_idx = torch.from_numpy(zero_alleles).cuda()
+    fp32 = rc.fold_read_conv_weights(model.read_convolver0, "tf32x3")
+    exact = _plain(rows, row_allele, row_valid, fp32, A, tf32=False)
     computed = int(((row_valid != 0) & (row_allele < A)).sum().item())
     flop = 2.0 * macs_per_row(channels) * computed
-    nbytes = (rows.numel() + row_allele.numel() * 4 + row_valid.numel() * 4
-              + folded.flat.numel() * 4 + got.numel() * 4)
     peaks = card_peaks(torch.cuda.get_device_name(0))
-    byte_ms = 1e3 * nbytes / peaks["bytes"]
-    fp32_ms = max(1e3 * flop / peaks["fp32"], byte_ms)
-    # the kernel computes every product as three TF32 mma passes (3xTF32)
-    tf32x3_ms = 1e3 * 3 * flop / peaks["tf32"]
-    line = {"phase": "kernel", "kernel": "read_conv_reduce", "C": channels,
-            "nb": rows.shape[0], "A": A, "rows_computed": computed,
-            "max_abs_err": err.max().item(), "max_rel_err": max_rel,
-            "rtol": 1e-4, "atol": 1e-3, "masked_alleles_zero": zeros_exact,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(tf32x3_ms, byte_ms),
-            "bound_by": "operations" if tf32x3_ms >= byte_ms else "bytes",
-            "fp32_bound_ms": fp32_ms, "tf32x3_bound_ms": tf32x3_ms,
-            "mma_sync_bound_ms": 1e3 * 3 * flop / mma_rate,
-            "tf32_bound_ms": max(1e3 * flop / peaks["tf32"], byte_ms),
-            "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
-            "tflop_per_s": flop / ms / 1e9}
-    emit(line)
-    return line
+    lines = {}
+    for route, (passes, peak, probe) in ROUTES.items():
+        folded = (fp32 if route == "tf32x3" else
+                  rc.fold_read_conv_weights(model.read_convolver0, route))
+        run = lambda: rc.read_conv_reduce(rows, row_allele, row_valid,
+                                          folded, A)
+        tf32 = route != "tf32x3"         # the route's precision allows TF32
+        plain = lambda: _plain(rows, row_allele, row_valid, folded, A, tf32)
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got - want).abs().max().item()
+        zeros_exact = bool((got[zero_idx] == 0).all())
+        line = {"phase": "kernel", "kernel": "read_conv_reduce",
+                "kernel_route": route, "C": channels, "nb": rows.shape[0],
+                "A": A, "rows_computed": computed, "max_abs_err": err,
+                "masked_alleles_zero": zeros_exact}
+        if route == "tf32x3":
+            big = want.abs() >= 1e-3
+            rel = ((got - want).abs()[big] / want.abs()[big]).max().item()
+            ok = torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+            line.update(max_rel_err=rel, rtol=1e-4, atol=1e-3)
+        elif route == "tf32":
+            # against fp32: at most 2x the error of cuDNN's own TF32 convs
+            err = (got - exact).abs().max().item()
+            cudnn = (want - exact).abs().max().item()
+            ok = err <= 2 * cudnn
+            line.update(max_abs_err=err, cudnn_tf32_max_abs_err=cudnn,
+                        bar="max_abs_err <= 2 * cudnn_tf32_max_abs_err")
+        else:
+            # the bf16 plain version's own distance from fp32 sets the bar
+            bf16_vs_fp32 = (want - exact).abs().max().item()
+            ok = err <= 0.25 * bf16_vs_fp32
+            line.update(plain_bf16_vs_fp32_max_abs=bf16_vs_fp32,
+                        bar="max_abs_err <= 0.25 * plain_bf16_vs_fp32_max_abs")
+        if not (ok and zeros_exact and torch.isfinite(got).all()):
+            raise AssertionError(f"read_conv_reduce route {route} (C="
+                                 f"{channels}) disagrees with its plain "
+                                 f"version: {line}")
+        ms = time_ms(run, 20)
+        plain_ms = time_ms(plain, 5)
+        nbytes = (rows.numel() + row_allele.numel() * 4
+                  + row_valid.numel() * 4 + folded.flat.numel() * 4
+                  + got.numel() * 4)
+        byte_ms = 1e3 * nbytes / peaks["bytes"]
+        op_ms = 1e3 * passes * flop / peaks[peak]
+        line.update(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
+            bound_by="operations" if op_ms >= byte_ms else "bytes",
+            mma_sync_bound_ms=1e3 * passes * flop / rates[probe],
+            fp32_bound_ms=max(1e3 * flop / peaks["fp32"], byte_ms),
+            gflop=flop / 1e9, mbytes=nbytes / 1e6,
+            tflop_per_s=flop / ms / 1e9)
+        emit(line)
+        lines[route] = line
+    return lines
 
 
 def call_on_cpu(model_name, scorer, bams, fasta, out_cpu):
     """The card's weights on the CPU (plain read-convolver version over
-    packed rows): returns (records, seconds)."""
+    packed rows), at the precision in force: returns (records, seconds)."""
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn.moe import create_model
     from hello_tpu_torch.pipeline.call import Scorer, call_genome
@@ -290,6 +363,7 @@ def main_path_phase(workdir):
 
     from hello_tpu_torch import native, sim, telemetry
     from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
 
@@ -305,17 +379,21 @@ def main_path_phase(workdir):
         raise AssertionError("the native host engine did not build")
     native_s = time.perf_counter() - t0
 
+    set_precision("highest")
     scorer = load_scorer("illumina", seed=0)         # cuda, highest
     assert scorer.device.type == "cuda" and scorer.packed_conv
     out_card = os.path.join(workdir, "card.vcf")
     stats = {}
     telemetry.reset()
-    rc.read_conv_reduce.launches = 0
+    rc.reset_launches()
     t0 = time.perf_counter()
     call_genome(bam, ds.fasta, scorer, out_card, stats=stats)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = rc.read_conv_reduce.launches
+    launches = rc.read_conv_reduce.launches_by_route["tf32x3"]
+    if launches != rc.read_conv_reduce.launches:
+        raise AssertionError("the highest path launched another route: "
+                             f"{rc.read_conv_reduce.launches_by_route}")
     stages = telemetry.report()
     if launches <= 0:
         raise AssertionError("the main path never launched read_conv_reduce")
@@ -342,6 +420,7 @@ def hybrid_path_phase(workdir):
 
     from hello_tpu_torch import sim, telemetry
     from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
 
@@ -354,13 +433,14 @@ def hybrid_path_phase(workdir):
     sim_s = time.perf_counter() - t0
     bams = [ds.bams["illumina"], ds.bams["pacbio"]]
 
+    set_precision("highest")
     scorer = load_scorer("hybrid", seed=0)           # cuda, highest
     assert scorer.device.type == "cuda" and scorer.packed_conv
     assert sorted(scorer.folded) == ["read_conv0", "read_conv1"]
     out_card = os.path.join(workdir, "card.vcf")
     stats = {}
     telemetry.reset()
-    rc.read_conv_reduce.launches = 0
+    rc.reset_launches()
     for folded in scorer.folded.values():
         folded.launches = 0
     t0 = time.perf_counter()
@@ -368,7 +448,10 @@ def hybrid_path_phase(workdir):
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches = {name: f.launches for name, f in scorer.folded.items()}
-    total = rc.read_conv_reduce.launches
+    total = rc.read_conv_reduce.launches_by_route["tf32x3"]
+    if total != rc.read_conv_reduce.launches:
+        raise AssertionError("the highest path launched another route: "
+                             f"{rc.read_conv_reduce.launches_by_route}")
     stages = telemetry.report()
     if min(launches.values()) <= 0 or total != sum(launches.values()):
         raise AssertionError(f"the hybrid path's read_conv_reduce launches "
@@ -390,6 +473,124 @@ def hybrid_path_phase(workdir):
     return launches
 
 
+def parallel_path_phase(workdir):
+    """call_parallel with worker processes at bf16 on the card (the bf16
+    route only), against the same weights at bf16 on the CPU; then the same
+    pool at highest and at default on the card, each against bf16 / default
+    as the precision sweep compares them.  Returns {route: launches}."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch import sim, telemetry
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.call import load_scorer
+    from hello_tpu_torch.pipeline.parallel_call import (HostWorkerPool,
+                                                        call_parallel)
+    from hello_tpu_torch.pipeline.precision_sweep import compare
+
+    t0 = time.perf_counter()
+    ds = sim.make_dataset(workdir, ref_length=PARALLEL_GENOME_BP,
+                          num_variants=PARALLEL_GENOME_BP // 1000,
+                          coverage=COVERAGE, read_length=150, seed=9)
+    sim_s = time.perf_counter() - t0
+    bam = [ds.bams["illumina"]]
+    route_of = {"bf16": "bf16", "highest": "tf32x3", "default": "tf32"}
+    legs, launches, bf16_scorer = {}, {}, None
+    t0 = time.perf_counter()
+    with HostWorkerPool(PARALLEL_WORKERS) as pool:
+        pool.wait_ready()
+        pool_s = time.perf_counter() - t0
+        for precision in ("bf16", "highest", "default"):
+            set_precision(precision)
+            scorer = load_scorer("illumina", seed=0)     # cuda
+            assert scorer.device.type == "cuda" and scorer.packed_conv
+            out = os.path.join(workdir, f"card_{precision}.vcf")
+            stats = {}
+            telemetry.reset()
+            rc.reset_launches()
+            t0 = time.perf_counter()
+            call_parallel(bam, ds.fasta, scorer, out, pool=pool,
+                          chunk_size=PARALLEL_CHUNK, stats=stats)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            by_route = dict(rc.read_conv_reduce.launches_by_route)
+            route = route_of[precision]
+            if by_route[route] <= 0 or sum(by_route.values()) != by_route[route]:
+                raise AssertionError(f"parallel_path at {precision} launched "
+                                     f"{by_route}: only route {route} may run")
+            launches[route] = by_route[route]
+            legs[precision] = {"records": read_vcf(out), "seconds": seconds,
+                               "sites": stats["sites"],
+                               "launches_by_route": by_route,
+                               "stages": {k: stats[k] for k in (
+                                   "wait_s", "pack_s", "dispatch_s",
+                                   "stage_backpressure_s", "backpressure_s",
+                                   "fetch_s", "decode_s")}}
+            if precision == "bf16":
+                bf16_scorer = scorer
+    # the bf16 weights on the CPU, in-process, at bf16 and at highest
+    card = legs["bf16"]["records"]
+    if not card:
+        raise AssertionError("the card's bf16 VCF is empty")
+    cpu, cpu_s = {}, {}
+    for precision in ("bf16", "highest"):
+        set_precision(precision)
+        cpu[precision], cpu_s[precision] = call_on_cpu(
+            "illumina", bf16_scorer, bam, ds.fasta,
+            os.path.join(workdir, f"cpu_{precision}.vcf"))
+    set_precision("highest")
+    site_flips, gt_flips, dq = compare(card, cpu["bf16"])
+    _, _, dq_cpu = compare(cpu["highest"], cpu["bf16"])
+    # Two bf16 runs whose fp32 sums are taken in different orders (the
+    # kernel's mma.sync and cuDNN against the CPU's convs) round some sums
+    # to neighbouring bf16 values, and each such sum moves the later convs
+    # of its allele: those sites sit as far apart as bf16 sits from fp32.
+    # So the card and the CPU at bf16 must agree on every site and nearly
+    # every genotype, sit at most two bf16-from-fp32 distances apart at the
+    # worst site, and at the median site at most half of one.
+    gt_bar = 0.002 * len(card)
+    if (site_flips or gt_flips > gt_bar or not len(dq)
+            or dq.max() > 2 * dq_cpu.max()
+            or np.median(dq) > 0.5 * np.median(dq_cpu)):
+        raise AssertionError(
+            f"card bf16 against CPU bf16: {site_flips} site flips, "
+            f"{gt_flips} genotype flips (at most {gt_bar}), dQ max "
+            f"{dq.max() if len(dq) else None} (at most 2 x "
+            f"{dq_cpu.max() if len(dq_cpu) else None}), median "
+            f"{np.median(dq) if len(dq) else None} (at most 0.5 x "
+            f"{np.median(dq_cpu) if len(dq_cpu) else None})")
+    sweep = {}
+    for precision in ("bf16", "default"):
+        sf, gf, d = compare(legs["highest"]["records"],
+                            legs[precision]["records"])
+        sweep[precision] = {"site_flips": sf, "genotype_flips": gf,
+                            "qual_delta_max": float(d.max()) if len(d) else 0.0,
+                            "qual_delta_p99": float(np.percentile(d, 99))
+                            if len(d) else 0.0}
+    emit({"phase": "parallel_path", "model": "illumina",
+          "genome_bp": PARALLEL_GENOME_BP, "coverage": COVERAGE,
+          "num_workers": PARALLEL_WORKERS, "chunk_size": PARALLEL_CHUNK,
+          "sim_seconds": sim_s, "pool_start_seconds": pool_s,
+          "legs": {p: {k: v for k, v in leg.items() if k != "records"}
+                   | {"records": len(leg["records"]),
+                      "windows_per_s": leg["sites"] / leg["seconds"]}
+                   for p, leg in legs.items()},
+          "cpu_seconds": cpu_s, "cpu_records": len(cpu["bf16"]),
+          "card_vs_cpu_bf16": {"site_flips": site_flips,
+                               "genotype_flips": gt_flips,
+                               "qual_delta_max": float(dq.max()),
+                               "qual_delta_median": float(np.median(dq)),
+                               "qual_delta_over_0.05": int((dq > 0.05).sum())},
+          "cpu_bf16_vs_cpu_highest": {
+              "qual_delta_max": float(dq_cpu.max()),
+              "qual_delta_median": float(np.median(dq_cpu)),
+              "qual_delta_over_0.05": int((dq_cpu > 0.05).sum())},
+          "card_sweep_vs_highest": sweep})
+    return launches
+
+
 def main():
     import torch
 
@@ -401,30 +602,43 @@ def main():
               "(hello_tpu_torch/ not found)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from hello_tpu_torch.nn.layers import set_precision
 
+    set_precision("highest")
     name, smi = device_phase()
-    mma_rate = probe_phase(build_phase())
-    lines = [kernel_phase("illumina", 6, seed=0, mma_rate=mma_rate),
-             kernel_phase("pacbio_hp", 7, seed=1, mma_rate=mma_rate)]
+    rates = probe_phase(build_phase())
+    lines = [kernel_phase("illumina", 6, seed=0, rates=rates),
+             kernel_phase("pacbio_hp", 7, seed=1, rates=rates)]
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as workdir:
         launches = main_path_phase(os.path.join(workdir, "illumina"))
         hybrid = hybrid_path_phase(os.path.join(workdir, "hybrid"))
-    k6 = lines[0]
-    emit({"kernels": [{
-        "name": "read_conv_reduce", "route": "cuda",
-        "source": "hello_tpu_torch/ops/csrc/read_conv.cu",
-        "replaces": "hello_tpu/ops/read_conv.py:252",
-        "also_replaces": "hello_tpu/ops/read_conv.py:263",
-        "launches": launches + sum(hybrid.values()),
-        "launches_by_path": {"main_path": launches, "hybrid_path": hybrid},
-        "max_abs_err": max(line["max_abs_err"] for line in lines),
-        "ms": k6["ms"], "plain_ms": k6["plain_ms"],
-        "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
-        "fp32_bound_ms": k6["fp32_bound_ms"],
-        "mma_sync_bound_ms": k6["mma_sync_bound_ms"],
-        "ms_C7": lines[1]["ms"], "library_ms": None}]})
+        parallel = parallel_path_phase(os.path.join(workdir, "parallel"))
+    by_path = {
+        "tf32x3": {"main_path": launches, "hybrid_path": hybrid,
+                   "parallel_path_highest": parallel["tf32x3"]},
+        "tf32": {"parallel_path_default": parallel["tf32"]},
+        "bf16": {"parallel_path": parallel["bf16"]},
+    }
+    kernels = []
+    for route in ROUTES:
+        k6, k7 = lines[0][route], lines[1][route]
+        paths = by_path[route]
+        kernels.append({
+            "name": f"read_conv_reduce_{route}", "route": "cuda",
+            "kernel_route": route,
+            "source": "hello_tpu_torch/ops/csrc/read_conv.cu",
+            "replaces": "hello_tpu/ops/read_conv.py:252",
+            "also_replaces": "hello_tpu/ops/read_conv.py:263",
+            "launches": sum(v if isinstance(v, int) else sum(v.values())
+                            for v in paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": max(k6["max_abs_err"], k7["max_abs_err"]),
+            "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+            "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+            "fp32_bound_ms": k6["fp32_bound_ms"],
+            "mma_sync_bound_ms": k6["mma_sync_bound_ms"],
+            "ms_C7": k7["ms"], "library_ms": None})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -29,21 +29,57 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-#: ROADMAP items named by the errors for what this slice does not port.
+#: ROADMAP item named by the errors for the layers this slice does not port.
 ROADMAP_LAYERS = "ROADMAP.md Queue 1 item 1 (layers not yet ported)"
-ROADMAP_PRECISION = "ROADMAP.md Queue 1 (the default and bf16 precisions)"
+
+#: the precisions of hello_tpu's set_precision
+PRECISIONS = ("highest", "high", "default", "bf16")
+
+#: Matmul/conv precision, one of PRECISIONS.  "highest" and "high" are fp32
+#: math (TF32 off in cuBLAS and cuDNN; the read-conv kernel's 3xTF32 route);
+#: "default" allows single-pass TF32, what XLA's DEFAULT means on a GPU (the
+#: kernel's 1xTF32 route); "bf16" additionally carries conv activations in
+#: bfloat16 (the kernel's bf16 route): a conv rounds its fp32 input and its
+#: weight to bf16, accumulates in fp32, adds the fp32 bias and rounds the
+#: result to bf16 once.  Linear outputs (the expert logits) stay fp32.
+#: Switch with set_precision().
+PRECISION = "highest"
+
+#: Conv activation dtype; None keeps float32 activations.
+ACT_DTYPE = None
 
 
 def set_precision(precision: str):
-    """Set fp32 math for every matmul and convolution ("highest": TF32 off
-    in both cuBLAS and cuDNN), mirroring hello_tpu's set_precision.  The
-    "default" and "bf16" modes are not ported yet and raise."""
-    if precision != "highest":
-        raise ValueError(
-            f"precision {precision!r} is not ported yet; only 'highest' is "
-            f"({ROADMAP_PRECISION})")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Set the global matmul/conv precision, as hello_tpu's set_precision:
+    'highest' / 'high' (fp32 math, TF32 off), 'default' (TF32 allowed in
+    cuBLAS and cuDNN) or 'bf16' (TF32 allowed, bf16 conv activations)."""
+    global PRECISION, ACT_DTYPE
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{', '.join(PRECISIONS)}")
+    ACT_DTYPE = torch.bfloat16 if precision == "bf16" else None
+    PRECISION = precision
+    tf32 = precision in ("default", "bf16")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def conv1d_bf16(x, w, b, stride=1, padding=0, dilation=1, groups=1):
+    """[N, Ci, L] x [Co, Ci/g, K] conv of bf16-valued fp32 tensors: every
+    product is exact, the sum is taken in fp32, the fp32 bias is added after
+    and the result is left unrounded (fp32).  The bf16 activation route of
+    every conv, in the layers and in the read-conv kernel's plain version."""
+    y = F.conv1d(x, w, None, stride=stride, padding=padding,
+                 dilation=dilation, groups=groups)
+    return y if b is None else y + b[None, :, None]
+
+
+def _conv_in(x):
+    """Cast a conv's fp32 input to the activation dtype (no-op in fp32
+    modes)."""
+    if ACT_DTYPE is not None and x.dtype == torch.float32:
+        return x.to(ACT_DTYPE)
+    return x
 
 
 def kaiming_bound(fan_in: int) -> float:
@@ -74,9 +110,16 @@ class _WeightNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(v_shape[0])) if bias else None
 
     def weight(self):
+        """The effective weight.  The norm's sum of squares is taken in
+        float64 and its root rounded once to fp32, so the weight is the
+        same on every device whatever its reduction order (and, wherever
+        the fp32 sum is exact, bit-equal to hello_tpu's); at bf16 a weight
+        that differed in its last fp32 bit could round to another bf16
+        value."""
         v = self.weight_v
         dims = tuple(range(1, v.dim()))
-        norm = torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True))
+        norm = torch.sqrt(torch.sum(v.double() ** 2, dim=dims,
+                                    keepdim=True)).float()
         return self.weight_g * v / norm
 
 
@@ -98,10 +141,21 @@ class _ConvBase(nn.Module):
         return self.in_channels // self.groups * self.kernel_size
 
     def _conv(self, x, w, b):
-        y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride,
-                     padding=self.padding, dilation=self.dilation,
-                     groups=self.groups)
-        return y.transpose(1, 2)
+        """NWC conv.  With bf16 activations the conv runs in fp32 on
+        bf16-valued input and weight (every product exact, also in TF32 on
+        the card), the fp32 bias is added and the sum is rounded to bf16
+        once, where hello_tpu's conv accumulates in fp32 and rounds after
+        its bias (hello_tpu nn/layers.py Conv1d.apply)."""
+        x = _conv_in(x)
+        if x.dtype == torch.float32:
+            y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride,
+                         padding=self.padding, dilation=self.dilation,
+                         groups=self.groups)
+            return y.transpose(1, 2)
+        y = conv1d_bf16(x.float().transpose(1, 2), w.to(x.dtype).float(), b,
+                        stride=self.stride, padding=self.padding,
+                        dilation=self.dilation, groups=self.groups)
+        return y.to(x.dtype).transpose(1, 2)
 
 
 class Conv1d(_ConvBase):
@@ -143,7 +197,8 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        # a bf16 activation is promoted to fp32 (exact), as jnp.dot does
+        return F.linear(x.float(), self.weight, self.bias)
 
 
 class WeightNormedLinear(nn.Module):
@@ -157,7 +212,7 @@ class WeightNormedLinear(nn.Module):
                                   (out_features, 1), bias)
 
     def forward(self, x):
-        return F.linear(x, self.linear.weight(), self.linear.bias)
+        return F.linear(x.float(), self.linear.weight(), self.linear.bias)
 
 
 class ReLU(nn.Module):
@@ -187,7 +242,8 @@ class AdaptiveAvgPool1d(nn.Module):
             raise ValueError("only output_size=1 supported")
 
     def forward(self, x):
-        return torch.mean(x, dim=1, keepdim=True)
+        # bf16 is averaged in fp32 and rounded once, as jnp.mean does
+        return torch.mean(x.float(), dim=1, keepdim=True).to(x.dtype)
 
 
 class Flatten(nn.Module):

@@ -10,7 +10,12 @@ The port of hello_tpu's nn/moe.py over the same fixed-shape padded batches:
 
 Both read layouts reduce per allele through ONE op,
 ``ops.read_conv.read_conv_reduce``: the hand-written CUDA kernel for CUDA
-tensors, its plain PyTorch version for CPU tensors.  The dense grid is
+tensors, its plain PyTorch version for CPU tensors, in the kernel route of
+the precision in force (nn/layers.set_precision).  At ``bf16`` dtypes flow
+as in hello_tpu: the read-convolver frames are bf16 values summed per
+allele in fp32, the compressors' first convs round those sums to bf16, the
+conv stacks carry bf16 activations, and the expert logits and the meta
+softmax stay fp32.  The dense grid is
 passed as rows ``reads.reshape(A*R, L, C)`` with ``row_allele = r // R`` and
 ``row_valid = read_mask``.
 
@@ -37,9 +42,11 @@ import torch
 from torch import nn
 
 from . import archs
+from . import layers as L
 from .convert import _TORCH_ATTR
 from .layers import build_network
-from ..ops.read_conv import fold_read_conv_weights, read_conv_reduce
+from ..ops.read_conv import (fold_read_conv_weights, read_conv_reduce,
+                             route_for_precision)
 
 
 def packed_read_reduce(frames, row_allele, row_valid, num_alleles):
@@ -61,8 +68,13 @@ def masked_read_sum(read_frames, read_mask):
 
 
 def site_segment_sum(allele_feats, site_onehot):
-    """Sum allele-level features per site: [A, L, C] x [A, S] -> [S, L, C]."""
-    return torch.einsum("as,alc->slc", site_onehot, allele_feats)
+    """Sum allele-level features per site: [A, L, C] x [A, S] -> [S, L, C]
+    float32.  The one-hot contraction runs in float64 and is rounded once:
+    the fp32 sum, exact and the same on every device, where a TF32 matmul
+    (allowed at default and bf16) would round the features first and move
+    the bf16 rounding of the compressor input that follows."""
+    return torch.einsum("as,alc->slc", site_onehot.double(),
+                        allele_feats.double()).float()
 
 
 def make_site_onehot(site_ids, allele_mask, num_sites):
@@ -103,9 +115,10 @@ class MoEAttention(nn.Module):
         return getattr(self, _TORCH_ATTR[name], None)
 
     def fold_read_convs(self):
-        """Folded weights of each read convolver for the kernel (raises for a
-        read convolver it does not implement).  Compute once per parameter
-        set and pass to ``forward``."""
+        """Folded weights of each read convolver for the kernel route of the
+        precision in force (raises for a read convolver the kernel does not
+        implement).  Compute once per parameter set and precision and pass
+        to ``forward``."""
         return {name: fold_read_conv_weights(self.net(name))
                 for name in ("read_conv0", "read_conv1")
                 if self.net(name) is not None}
@@ -153,6 +166,12 @@ class MoEAttention(nn.Module):
         ``folded``: ``fold_read_convs()`` output (computed here when None)."""
         if folded is None:
             folded = self.fold_read_convs()
+        route = route_for_precision(L.PRECISION)
+        stale = {n: f.route for n, f in folded.items() if f.route != route}
+        if stale:
+            raise ValueError(f"read convolvers folded for routes {stale}, "
+                             f"but the precision {L.PRECISION!r} runs route "
+                             f"{route!r}: fold again after set_precision")
         S = batch["ref_segments"].shape[0]
         site_ids = batch["site_ids"].long()
         site_onehot = make_site_onehot(site_ids, batch["allele_mask"], S)

@@ -1,5 +1,12 @@
 // Fused read convolver + per-allele reduction for NVIDIA Hopper (sm_90a),
-// on the tensor cores with 3xTF32 warp-level mma.sync.
+// on the tensor cores with warp-level mma.sync, in three routes (one per
+// precision class of the caller; the fold packs the weights for one):
+//   kTF32x3 (highest, high): every product 3xTF32, fp32-class accuracy;
+//   kTF32 (default): one TF32 pass per product, XLA's DEFAULT on a GPU;
+//   kBF16 (bf16): m16n8k16 bf16 products accumulated in fp32, activations
+//       rounded to bf16 where the Pallas kernel's bf16 compute_dtype rounds
+//       them (below, "The bf16 route").
+// Everything but the products and the epilogue's rounding is shared.
 //
 // Replaces the two Pallas TPU kernels of hello_tpu/ops/read_conv.py and the
 // masked reduction they end in:
@@ -16,13 +23,14 @@
 // What bounds it: 5.08 M multiply-adds per row for C = 6 (10.15 MFLOP, the
 // 18 convs) against ~0.9 KB of uint8 input, so operations bound it, not
 // bytes.  For the kernel phase of chip_smoke.py (38,399 computed rows,
-// 389.8 GFLOP) on an H100 SXM: 5.82 ms at the fp32 FMA peak (67 TFLOP/s);
-// 2.36 ms for the three TF32 passes this design runs at the tensor-core
-// peak (3 x 389.8 GFLOP at 495 TFLOP/s; 3.09 ms on the PCIe card).
-// mma.sync's TF32 rate is about half that peak (chip_smoke.py's probe,
-// ops/csrc/mma_probe.cu); wgmma is the way to the rest.
+// 389.8 GFLOP) on an H100 SXM at the published dense peaks: 2.36 ms for
+// the three TF32 passes of kTF32x3 (3 x 389.8 GFLOP at 495 TFLOP/s),
+// 0.79 ms for kTF32's one pass, 0.39 ms for kBF16 (989 TFLOP/s); 5.82 ms
+// at the fp32 FMA peak.  mma.sync's rate is about half the tensor-core
+// peak (chip_smoke.py's probe, ops/csrc/mma_probe.cu); wgmma is the way to
+// the rest.
 //
-// Accuracy: every product is 3xTF32.  Each operand x splits into
+// Accuracy of kTF32x3: every product is 3xTF32.  Each operand x splits into
 // big = tf32(x) and small = tf32(x - big), both rounded to nearest with
 // ties away (cvt.rna's rounding), and a k-step accumulates
 // small*big + big*small + big*big in fp32, small terms first; the dropped
@@ -32,6 +40,25 @@
 // varies between runs, so the kernel is held to rtol 1e-4 / atol 1e-3
 // against the plain PyTorch version (read_conv_reduce_reference), the
 // tolerance hello_tpu holds its Pallas kernel to (tests/test_pallas_ops.py).
+// kTF32 keeps only big*big, each operand rounded as above (weights at fold
+// time); the fold drops the small parts from its buffer.
+//
+// The bf16 route.  Weights are rounded to bf16 at fold time (to nearest
+// even) and packed as m16n8k16 A fragments, K padded to a multiple of 16
+// (stem conv 1's 3C to 32).  Activations stay in the same fp32 shared
+// buffers, holding bf16 values: the uint8 input is exact in bf16, and every
+// epilogue rounds what it stores, as the Pallas kernel's bf16 path does:
+// a conv's accumulators start at the fp32 bias and are rounded to bf16 once
+// (ReLU commutes with the rounding); a residual add rounds the branch's conv
+// output first and the sum again, *o = bf16(*o + bf16(relu(v))), and so
+// does y + shortcut.  Max-pool compares bf16 values.  A B fragment's two
+// values per register are packed with cvt.rn.bf16x2.f32, exact on bf16
+// values.  The fold permutes each k-step's K order so that a lane's
+// register pairs hold channels (t, t + 4) and (t + 8, t + 12), not
+// (2t, 2t + 1): the B loads then sit at the TF32 routes' conflict-free
+// offsets, one 4-byte shared load per value.  The frames leave as
+// bf16 values and are summed per allele in fp32 by the atomics, as
+// hello_tpu's packed_read_reduce sums the bf16 frames in fp32.
 //
 // Design, and what it does about the SIMT kernel it replaces:
 //   * Tensor cores, not FMA pipes.  Every conv, stem conv 1 included (its
@@ -85,10 +112,14 @@
 // next block's products; and the activation split, four integer and
 // float ops per element on the way from shared memory to the mma.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// kernel routes, as ops/read_conv.py ROUTE_IDS numbers them
+enum Route { kTF32x3 = 0, kTF32 = 1, kBF16 = 2 };
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -127,7 +158,9 @@ constexpr int kNT64 = ntiles(kP64, kLOut, kWN);
 constexpr int kLdS = ld8(imax(kNT2, kNT3) * 8 + 2);
 constexpr int kLd32 = ld8(imax(kNT32 * 8 + 2, kNT64 * 16 + 1));
 constexpr int kLd64 = ld8(kNT64 * 8 + 2);
-constexpr int kIn0Pos = kNT1 * 8 + 3;    // stem conv 1 reads (q + 3) * C
+// stem conv 1 reads in[q * C + kk] for kk < its padded K (24, or 32 for
+// bf16): below (q + 6) * C for C >= 6
+constexpr int kIn0Pos = kNT1 * 8 + 6;
 // region 1: input (position-major), stem 2's output, then x32;
 // region 2: stem 1 and 3's outputs, then y32, then y64 | x64;
 // then two weight stages of one tap each (the largest: 64 x 64 x 2 floats)
@@ -139,21 +172,32 @@ constexpr int kSmemBytes =
 
 // The 18 convs in the fold's order (stem 1-3, 6 x RB32, the stride-2 conv,
 // its second conv, the 1x1 shortcut, 6 x RB64): K (stem conv 1's 3C
-// zero-padded to 24) and Co.  Each takes 2 K Co fragment floats, then Co
-// bias floats, in the flat buffer.
+// zero-padded to a whole k-step) and Co.  Each takes frag_floats(i) 32-bit
+// words of A fragments, then Co bias floats, in the flat buffer.
+template <int R>
 __host__ __device__ constexpr int conv_k(int i) {
-  return i == 0 ? 24 : i <= 2 ? 48 : i <= 9 ? 96 : i == 10 ? 192 : i == 11 ? 32 : 192;
+  return i == 0 ? (R == kBF16 ? 32 : 24)
+       : i <= 2 ? 48 : i <= 9 ? 96 : i == 10 ? 192 : i == 11 ? 32 : 192;
 }
 __host__ __device__ constexpr int conv_co(int i) {
   return i <= 1 ? 16 : i <= 8 ? 32 : 64;
 }
 __host__ __device__ constexpr int conv_taps(int i) { return i == 0 || i == 11 ? 1 : 3; }
-__host__ __device__ constexpr int conv_off(int i) {
-  return i == 0 ? 0 : conv_off(i - 1) + 2 * conv_k(i - 1) * conv_co(i - 1) + conv_co(i - 1);
+// A-fragment words of conv i: big and small TF32 parts, the TF32 part, or
+// two bf16 values per word
+template <int R>
+__host__ __device__ constexpr int frag_floats(int i) {
+  return R == kTF32x3 ? 2 * conv_k<R>(i) * conv_co(i)
+       : R == kTF32 ? conv_k<R>(i) * conv_co(i) : conv_k<R>(i) * conv_co(i) / 2;
 }
-// fragment floats of one tap of conv i (the unit of staging)
+template <int R>
+__host__ __device__ constexpr int conv_off(int i) {
+  return i == 0 ? 0 : conv_off<R>(i - 1) + frag_floats<R>(i - 1) + conv_co(i - 1);
+}
+// fragment words of one tap of conv i (the unit of staging)
+template <int R>
 __host__ __device__ constexpr int tap_floats(int i) {
-  return i < 0 ? 0 : 2 * conv_k(i) * conv_co(i) / conv_taps(i);
+  return i < 0 ? 0 : frag_floats<R>(i) / conv_taps(i);
 }
 
 enum Epilogue { kRelu = 0, kReluAdd = 1, kLinear = 2 };
@@ -171,9 +215,10 @@ struct Conv {
 };
 
 // stem conv 1 reads the position-major input: kk = tap * C + ci is one
-// linear offset, so it is a single "tap" of K = 24 (weights zero-padded)
-template <int C>
-using Stem1 = Conv<24, 16, 1, C, 0, 1, 0, kLdS, 0, kLIn, 148, kNT1>;
+// linear offset, so it is a single "tap" of K = 24 or 32 (weights
+// zero-padded)
+template <int C, int R>
+using Stem1 = Conv<conv_k<R>(0), 16, 1, C, 0, 1, 0, kLdS, 0, kLIn, 148, kNT1>;
 using Stem2 = Conv<16, 16, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 146, kNT2>;
 using Stem3 = Conv<16, 32, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 144, kNT3>;
 using RB32 = Conv<32, 32, 3, 1, 1, kLd32, 0, kLd32, 1, kP32, kLPool, kNT32>;
@@ -196,6 +241,29 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values -> one register of bf16 values, lo in the low half (the
+// lower K index of an mma fragment pair); exact on bf16 values
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// what an epilogue stores: bf16-rounded for the bf16 route (to nearest
+// even, as astype rounds), unchanged for the TF32 routes
+template <int R>
+__device__ __forceinline__ float act(float v) {
+  return R == kBF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 // Copy n floats (a multiple of 4, 16-byte aligned) global -> shared with
 // cp.async, bypassing L1, as one commit group of the calling thread.
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
@@ -208,28 +276,33 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
 
 // One conv over shared memory on the tensor cores, out^T = W x im2col(in):
 // A = W [Co][K] (m16 tiles of output channels), B = the im2col view of `in`
-// (n8 tiles of positions).  The weights come pre-split from the fold as A
-// fragments, [K/8][Co/16][big, small][32 lanes][a0..a3] (pack_conv in
-// ops/read_conv.py), staged into shared memory one tap at a time: tap t
-// computes from stage `cur` while cp.async fills the other with tap t + 1,
-// or with the first tap of conv NEXT.  Activations split as their B
-// fragments load.  Every warp takes at most one item of WM m-tiles x WN
-// n-tiles; all threads reach the per-tap barrier.
-template <class G, int I, int NEXT, int WM, int WN, int EPI>
+// (n8 tiles of positions).  The weights come from the fold as the route's A
+// fragments ([K/8][Co/16][big, small][32 lanes][a0..a3] for kTF32x3, without
+// small for kTF32, [K/16][Co/16][32 lanes][4 bf16 pairs] for kBF16;
+// pack_conv in ops/read_conv.py), staged into shared memory one tap at a
+// time: tap t computes from stage `cur` while cp.async fills the other with
+// tap t + 1, or with the first tap of conv NEXT.  Activations are rounded
+// (split for kTF32x3) as their B fragments load.  Every warp takes at most
+// one item of WM m-tiles x WN n-tiles; all threads reach the per-tap
+// barrier.
+template <int R, class G, int I, int NEXT, int WM, int WN, int EPI>
 __device__ __forceinline__ void mma_conv(const float* in, float* out,
                                          const float* __restrict__ weights,
                                          float* wstage, int& cur) {
+  constexpr int KS = R == kBF16 ? 16 : 8;  // K of one mma
   constexpr int MT = G::CO / 16;
-  constexpr int CB = G::CI / 8;        // k-steps per tap
+  constexpr int CB = G::CI / KS;       // k-steps per tap
   constexpr int MI = MT / WM;
   constexpr int ITEMS = G::NT / WN * MI;
-  constexpr int TAP = tap_floats(I);
-  static_assert(G::CI % 8 == 0 && MT % WM == 0 && G::NT % WN == 0 &&
+  constexpr int TAP = tap_floats<R>(I);
+  // 16-byte fragment loads per m-tile and k-step (big and small: two)
+  constexpr int AV = R == kTF32x3 ? 64 : 32;
+  static_assert(G::CI % KS == 0 && MT % WM == 0 && G::NT % WN == 0 &&
                 ITEMS <= kWarps, "conv tiling");
   static_assert(G::TAPS == conv_taps(I) && G::CO == conv_co(I) &&
-                G::TAPS * G::CI == conv_k(I) && TAP <= kStage, "conv layout");
-  const float* w = weights + conv_off(I);
-  const float* bias = w + 2 * conv_k(I) * G::CO;
+                G::TAPS * G::CI == conv_k<R>(I) && TAP <= kStage, "conv layout");
+  const float* w = weights + conv_off<R>(I);
+  const float* bias = w + frag_floats<R>(I);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -260,43 +333,59 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
     if (tap + 1 < G::TAPS) {
       stage(wstage + (cur ^ 1) * kStage, w + (tap + 1) * TAP, TAP);
     } else if (NEXT >= 0) {
-      stage(wstage + (cur ^ 1) * kStage, weights + conv_off(imax(NEXT, 0)),
-            tap_floats(NEXT));
+      stage(wstage + (cur ^ 1) * kStage, weights + conv_off<R>(imax(NEXT, 0)),
+            tap_floats<R>(NEXT));
     }
     if (busy) {
       const float4* a_lane =
-          reinterpret_cast<const float4*>(wstage + cur * kStage) + mt0 * 64 + lane;
+          reinterpret_cast<const float4*>(wstage + cur * kStage) + mt0 * AV + lane;
       const float* b_tap = b_lane + tap * G::TS;
 #pragma unroll
       for (int cb = 0; cb < CB; ++cb) {
         uint32_t ab[WM][4], as[WM][4];
 #pragma unroll
         for (int i = 0; i < WM; ++i) {
-          const float4 vb = a_lane[(cb * MT + i) * 64];
-          const float4 vs = a_lane[(cb * MT + i) * 64 + 32];
+          const float4 vb = a_lane[(cb * MT + i) * AV];
           ab[i][0] = __float_as_uint(vb.x);
           ab[i][1] = __float_as_uint(vb.y);
           ab[i][2] = __float_as_uint(vb.z);
           ab[i][3] = __float_as_uint(vb.w);
-          as[i][0] = __float_as_uint(vs.x);
-          as[i][1] = __float_as_uint(vs.y);
-          as[i][2] = __float_as_uint(vs.z);
-          as[i][3] = __float_as_uint(vs.w);
+          if constexpr (R == kTF32x3) {
+            const float4 vs = a_lane[(cb * MT + i) * AV + 32];
+            as[i][0] = __float_as_uint(vs.x);
+            as[i][1] = __float_as_uint(vs.y);
+            as[i][2] = __float_as_uint(vs.z);
+            as[i][3] = __float_as_uint(vs.w);
+          }
         }
 #pragma unroll
         for (int j = 0; j < WN; ++j) {
-          const float* bp = b_tap + cb * 8 * G::CS + j * 8 * G::QS;
+          const float* bp = b_tap + cb * KS * G::CS + j * 8 * G::QS;
           const float x0 = bp[0];
           const float x1 = bp[4 * G::CS];
-          const uint32_t big0 = tf32_rna(x0);
-          const uint32_t big1 = tf32_rna(x1);
-          const uint32_t small0 = tf32_rna(x0 - __uint_as_float(big0));
-          const uint32_t small1 = tf32_rna(x1 - __uint_as_float(big1));
+          if constexpr (R == kBF16) {
+            // the fold's K order: the pairs are channels (t, t + 4) and
+            // (t + 8, t + 12) of the k-step
+            const uint32_t b0 = pack_bf16x2(x0, x1);
+            const uint32_t b1 = pack_bf16x2(bp[8 * G::CS], bp[12 * G::CS]);
 #pragma unroll
-          for (int i = 0; i < WM; ++i) {
-            mma_tf32(acc[i][j], as[i], big0, big1);
-            mma_tf32(acc[i][j], ab[i], small0, small1);
-            mma_tf32(acc[i][j], ab[i], big0, big1);
+            for (int i = 0; i < WM; ++i) mma_bf16(acc[i][j], ab[i], b0, b1);
+          } else if constexpr (R == kTF32) {
+            const uint32_t big0 = tf32_rna(x0);
+            const uint32_t big1 = tf32_rna(x1);
+#pragma unroll
+            for (int i = 0; i < WM; ++i) mma_tf32(acc[i][j], ab[i], big0, big1);
+          } else {
+            const uint32_t big0 = tf32_rna(x0);
+            const uint32_t big1 = tf32_rna(x1);
+            const uint32_t small0 = tf32_rna(x0 - __uint_as_float(big0));
+            const uint32_t small1 = tf32_rna(x1 - __uint_as_float(big1));
+#pragma unroll
+            for (int i = 0; i < WM; ++i) {
+              mma_tf32(acc[i][j], as[i], big0, big1);
+              mma_tf32(acc[i][j], ab[i], small0, small1);
+              mma_tf32(acc[i][j], ab[i], big0, big1);
+            }
           }
         }
       }
@@ -304,7 +393,8 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
     cur ^= 1;
   }
   if (!busy) return;
-  // accumulator (i, j, e): co = tile row g (+8), position q = 2t (+1)
+  // accumulator (i, j, e): co = tile row g (+8), position q = 2t (+1), for
+  // m16n8k8 and m16n8k16 alike
 #pragma unroll
   for (int i = 0; i < WM; ++i) {
 #pragma unroll
@@ -319,11 +409,11 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
           float* o = out + co * G::OUT_LD + q + G::OUT_OFF;
           const float v = acc[i][j][e];
           if (EPI == kRelu) {
-            *o = fmaxf(v, 0.0f);
+            *o = act<R>(fmaxf(v, 0.0f));
           } else if (EPI == kReluAdd) {
-            *o += fmaxf(v, 0.0f);
+            *o = act<R>(*o + act<R>(fmaxf(v, 0.0f)));
           } else {
-            *o = v;
+            *o = act<R>(v);
           }
         }
       }
@@ -331,7 +421,7 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
   }
 }
 
-template <int C>
+template <int C, int R>
 __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
     const uint8_t* __restrict__ rows, int nb,
     const int32_t* __restrict__ row_allele,
@@ -364,7 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
   float* wstage = reg2 + kRegion2;
   const int tid = threadIdx.x;
   int cur = 0;
-  stage(wstage, weights, tap_floats(0));
+  stage(wstage, weights, tap_floats<R>(0));
 
   // uint8 rows [kRows * 150][C] -> fp32, position-major, in region 1; rows
   // past nb and the tail that stem conv 1's padded K reads are zero (the
@@ -377,9 +467,9 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
 
   // stem: three valid k3 convs with ReLU, positions q = r * 150 + l; a
   // conv's first barrier orders it after the previous conv's stores
-  mma_conv<Stem1<C>, 0, 1, 1, kWNStem, kRelu>(reg1, reg2, weights, wstage, cur);
-  mma_conv<Stem2, 1, 2, 1, kWNStem, kRelu>(reg2, reg1, weights, wstage, cur);
-  mma_conv<Stem3, 2, 3, 2, kWNStem, kRelu>(reg1, reg2, weights, wstage, cur);
+  mma_conv<R, Stem1<C, R>, 0, 1, 1, kWNStem, kRelu>(reg1, reg2, weights, wstage, cur);
+  mma_conv<R, Stem2, 1, 2, 1, kWNStem, kRelu>(reg2, reg1, weights, wstage, cur);
+  mma_conv<R, Stem3, 2, 3, 2, kWNStem, kRelu>(reg1, reg2, weights, wstage, cur);
   __syncthreads();
 
   // max-pool k3 s2: 32 x 144 per row -> x32 rows of [halo, 71, halo, 3 spare]
@@ -409,12 +499,12 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
     y32[c * kLd32 + r * kP32 + (h == 0 ? 0 : kLPool + h)] = 0.0f;
   }
   // 3 residual blocks at 32 channels: x += relu(conv(relu(conv(x))))
-  mma_conv<RB32, 3, 4, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
-  mma_conv<RB32, 4, 5, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
-  mma_conv<RB32, 5, 6, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
-  mma_conv<RB32, 6, 7, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
-  mma_conv<RB32, 7, 8, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
-  mma_conv<RB32, 8, 9, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
+  mma_conv<R, RB32, 3, 4, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
+  mma_conv<R, RB32, 4, 5, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
+  mma_conv<R, RB32, 5, 6, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
+  mma_conv<R, RB32, 6, 7, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
+  mma_conv<R, RB32, 7, 8, 2, kWN, kRelu>(x32, y32, weights, wstage, cur);
+  mma_conv<R, RB32, 8, 9, 2, kWN, kReluAdd>(y32, x32, weights, wstage, cur);
   __syncthreads();
 
   // stride-2 residual block 32 -> 64: y = relu(conv_s2(x)) and the
@@ -429,17 +519,17 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
     y64[c * kLd64 + col] = 0.0f;
     x64[c * kLd64 + col] = 0.0f;
   }
-  mma_conv<Down, 9, 11, 2, kWN, kRelu>(x32, y64, weights, wstage, cur);
-  mma_conv<Short, 11, 10, 2, kWN, kLinear>(x32, x64, weights, wstage, cur);
-  mma_conv<RB64, 10, 12, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  mma_conv<R, Down, 9, 11, 2, kWN, kRelu>(x32, y64, weights, wstage, cur);
+  mma_conv<R, Short, 11, 10, 2, kWN, kLinear>(x32, x64, weights, wstage, cur);
+  mma_conv<R, RB64, 10, 12, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
 
   // 3 residual blocks at 64 channels, x in x64
-  mma_conv<RB64, 12, 13, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
-  mma_conv<RB64, 13, 14, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
-  mma_conv<RB64, 14, 15, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
-  mma_conv<RB64, 15, 16, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
-  mma_conv<RB64, 16, 17, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
-  mma_conv<RB64, 17, -1, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  mma_conv<R, RB64, 12, 13, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
+  mma_conv<R, RB64, 13, 14, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  mma_conv<R, RB64, 14, 15, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
+  mma_conv<R, RB64, 15, 16, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
+  mma_conv<R, RB64, 16, 17, 2, kWN, kRelu>(x64, y64, weights, wstage, cur);
+  mma_conv<R, RB64, 17, -1, 2, kWN, kReluAdd>(y64, x64, weights, wstage, cur);
   __syncthreads();
 
   // out[a, l, c] += valid * x[c, l] for each valid row
@@ -456,15 +546,15 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
   }
 }
 
-template <int C>
+template <int C, int R>
 cudaError_t launch(const void* rows, int nb, const void* row_allele,
                    const void* row_valid, const void* weights,
                    int num_alleles, void* out, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      read_conv_reduce_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      read_conv_reduce_kernel<C, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return err;
-  read_conv_reduce_kernel<C><<<cdiv(nb, kRows), kThreads, kSmemBytes, stream>>>(
+  read_conv_reduce_kernel<C, R><<<cdiv(nb, kRows), kThreads, kSmemBytes, stream>>>(
       static_cast<const uint8_t*>(rows), nb,
       static_cast<const int32_t*>(row_allele),
       static_cast<const float*>(row_valid),
@@ -473,32 +563,60 @@ cudaError_t launch(const void* rows, int nb, const void* row_allele,
   return cudaGetLastError();
 }
 
+template <int C>
+cudaError_t launch_route(int route, const void* rows, int nb,
+                         const void* row_allele, const void* row_valid,
+                         const void* weights, int num_alleles, void* out,
+                         cudaStream_t s) {
+  switch (route) {
+    case kTF32x3:
+      return launch<C, kTF32x3>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
+    case kTF32:
+      return launch<C, kTF32>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
+    case kBF16:
+      return launch<C, kBF16>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int C>
+const void* kernel_of(int route) {
+  return route == kTF32x3 ? reinterpret_cast<const void*>(&read_conv_reduce_kernel<C, kTF32x3>)
+       : route == kTF32 ? reinterpret_cast<const void*>(&read_conv_reduce_kernel<C, kTF32>)
+       : route == kBF16 ? reinterpret_cast<const void*>(&read_conv_reduce_kernel<C, kBF16>)
+       : nullptr;
+}
+
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t).  Returns the cudaError_t of the
-// shared-memory opt-in or of the launch itself (0 on success); the caller
-// allocates and zero-fills `out`.
-extern "C" int read_conv_reduce_f32(const void* rows, int nb, int channels,
-                                    const void* row_allele,
+// Launch the route's kernel (0 = 3xTF32, 1 = TF32, 2 = bf16, the fold's
+// weight layout) on `stream` (a cudaStream_t).  Returns the cudaError_t of
+// the shared-memory opt-in or of the launch itself (0 on success); the
+// caller allocates and zero-fills `out`.
+extern "C" int read_conv_reduce_run(const void* rows, int nb, int channels,
+                                    int route, const void* row_allele,
                                     const void* row_valid,
                                     const void* weights, int num_alleles,
                                     void* out, void* stream) {
   if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
+  if (route < kTF32x3 || route > kBF16) return static_cast<int>(cudaErrorInvalidValue);
   if (nb <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       channels == 6
-          ? launch<6>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s)
-          : launch<7>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s));
+          ? launch_route<6>(route, rows, nb, row_allele, row_valid, weights, num_alleles, out, s)
+          : launch_route<7>(route, rows, nb, row_allele, row_valid, weights, num_alleles, out, s));
 }
 
-// The launch's shape on this device: read rows per block, dynamic shared
-// memory per block, threads per block and resident blocks per SM.
-extern "C" int read_conv_reduce_info(int channels, int* rows_per_block,
-                                     int* smem_bytes, int* threads,
-                                     int* blocks_per_sm) {
+// A route's launch shape on this device: read rows per block, dynamic
+// shared memory per block, threads per block and resident blocks per SM.
+extern "C" int read_conv_reduce_info(int channels, int route,
+                                     int* rows_per_block, int* smem_bytes,
+                                     int* threads, int* blocks_per_sm) {
   if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = channels == 6 ? &read_conv_reduce_kernel<6> : &read_conv_reduce_kernel<7>;
+  const void* kernel = channels == 6 ? kernel_of<6>(route) : kernel_of<7>(route);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);

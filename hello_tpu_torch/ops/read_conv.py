@@ -8,26 +8,39 @@ allele slot.  ``read_conv_reduce`` computes
     out[a] = sum over rows r with row_allele[r] == a of
              row_valid[r] * read_convolver(rows[r])          -> [A, 36, 64]
 
-in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: 3xTF32
-``mma.sync`` tensor-core convs over 5 read rows per block, built with
-``nvcc`` into ``ops/build/`` at first use and loaded with ctypes).  It
-replaces the two Pallas TPU kernels of hello_tpu's ops/read_conv.py
-(``_stem_kernel`` and ``_tail_kernel``) and the reduction after them, and
-serves both read layouts of the model: the packed rows of the coded wire and
-the dense ``[A, R]`` grid flattened to rows.
+in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: ``mma.sync``
+tensor-core convs over 5 read rows per block, built with ``nvcc`` into
+``ops/build/`` at first use and loaded with ctypes).  It replaces the two
+Pallas TPU kernels of hello_tpu's ops/read_conv.py (``_stem_kernel`` and
+``_tail_kernel``) and the reduction after them, and serves both read layouts
+of the model: the packed rows of the coded wire and the dense ``[A, R]``
+grid flattened to rows.
+
+The kernel has three routes, one per precision class (``ROUTES``), chosen
+when the weights are folded:
+
+  * ``tf32x3`` (``highest``, ``high``): fp32-class products, 3xTF32;
+  * ``tf32`` (``default``): one TF32 pass per product, XLA's DEFAULT on a
+    GPU;
+  * ``bf16`` (``bf16``): bf16 products accumulated in fp32, with the
+    activations rounded to bf16 where the Pallas kernel's bf16
+    ``compute_dtype`` rounds them: each conv's biased fp32 sum once, and
+    each residual add's sum again.
 
 ``read_conv_reduce_reference`` is the plain PyTorch version of the same
-function (``F.conv1d`` / ``F.max_pool1d`` chain + ``index_add_``).  The
-wrapper takes it only for tensors that lie on the CPU; a CUDA tensor goes to
-the kernel or raises.
+function and route (``F.conv1d`` / ``F.max_pool1d`` chain + ``index_add_``,
+with the bf16 route's rounding points).  The wrapper takes it only for
+tensors that lie on the CPU; a CUDA tensor goes to the kernel of its
+route or raises.
 
-Weights are folded once per parameter set (``fold_read_conv_weights``): the
-weight norm is applied and each conv becomes ``W[Co, K*Ci]`` (k-major, as
-hello_tpu's ``extract_read_conv_weights``) plus ``b[Co]``.  The kernel reads
-one flat buffer holding, per conv, ``W`` split into TF32 ``big`` and
-``small`` parts in mma.sync A-fragment order (``pack_conv``), then ``b``.
-The topology gate raises for a read convolver the kernel does not
-implement, naming the ROADMAP item that holds its kernel variant.
+Weights are folded once per parameter set and route
+(``fold_read_conv_weights``): the weight norm is applied and each conv
+becomes ``W[Co, K*Ci]`` (k-major, as hello_tpu's
+``extract_read_conv_weights``; rounded to bf16 for the bf16 route) plus
+``b[Co]``.  The kernel reads one flat buffer holding, per conv, ``W`` in the
+route's mma.sync A-fragment order (``pack_conv``), then ``b``.  The topology
+gate raises for a read convolver the kernel does not implement, naming the
+ROADMAP item that holds its kernel variant.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +75,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ROADMAP_VARIANTS = ("ROADMAP.md Queue 1 item 14: kernel variants of "
                     "read_conv_reduce for the wide, addendum and layer_norm "
                     "configs")
+
+#: kernel route of each precision (nn/layers.PRECISIONS), and the route's
+#: number in the kernel's C interface
+ROUTES = {"highest": "tf32x3", "high": "tf32x3", "default": "tf32",
+          "bf16": "bf16"}
+ROUTE_IDS = {"tf32x3": 0, "tf32": 1, "bf16": 2}
+
+
+def route_for_precision(precision: str) -> str:
+    """The kernel route of a precision (raises for an unknown one)."""
+    if precision not in ROUTES:
+        raise ValueError(f"no read-conv kernel route for precision "
+                         f"{precision!r}")
+    return ROUTES[precision]
+
 
 # expected (C_out, K*C_in) of every conv after the first, whose K*C_in
 # depends on the 6/7 input channels (hello_tpu ops/read_conv.py:427-432)
@@ -160,28 +188,45 @@ def check_read_convolver(seq: L.Sequential):
 
 @dataclasses.dataclass(eq=False)
 class FoldedReadConv:
-    """Folded read-convolver weights: ``convs`` holds the 18 ``(W [Co, K*Ci],
-    b [Co])`` pairs; ``flat`` is the kernel's buffer (per conv the
-    ``pack_conv`` fragments, then ``b``, concatenated).  ``launches`` counts
-    the kernel's launches with these weights (one read convolver's share of
+    """Folded read-convolver weights for one kernel route: ``convs`` holds
+    the 18 ``(W [Co, K*Ci], b [Co])`` pairs (``W`` bf16-valued for the bf16
+    route); ``flat`` is the kernel's buffer (per conv the ``pack_conv``
+    fragments, then ``b``, concatenated).  ``launches`` counts the kernel's
+    launches with these weights (one read convolver's share of
     ``read_conv_reduce.launches``)."""
     convs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     flat: torch.Tensor
     in_channels: int
+    route: str = "tf32x3"
     launches: int = 0
 
 
-def padded_k(kc: int) -> int:
-    """K of a conv as the kernel's m16n8k8 products take it: a multiple of 8
-    (stem conv 1's 3*C = 18 or 21 becomes 24; the others already are)."""
-    return -(-kc // 8) * 8
+def k_step(route: str) -> int:
+    """K of one mma.sync product: m16n8k8 for the TF32 routes, m16n8k16 for
+    bf16."""
+    return 16 if route == "bf16" else 8
 
 
-def num_weight_floats(in_channels: int) -> int:
-    """Floats of the kernel's buffer: per conv, big and small A fragments
-    (2 * Co * padded K) and the bias."""
+def padded_k(kc: int, route: str = "tf32x3") -> int:
+    """K of a conv as the route's products take it: a multiple of
+    ``k_step`` (stem conv 1's 3*C = 18 or 21 becomes 24, or 32 for bf16; the
+    others already are)."""
+    step = k_step(route)
+    return -(-kc // step) * step
+
+
+def fragment_floats(co: int, kc: int, route: str = "tf32x3") -> int:
+    """32-bit words of one conv's A fragments: big and small TF32 parts
+    (tf32x3), the TF32 part (tf32) or two bf16 values per word (bf16)."""
+    kp = padded_k(kc, route)
+    return {"tf32x3": 2 * co * kp, "tf32": co * kp, "bf16": co * kp // 2}[route]
+
+
+def num_weight_floats(in_channels: int, route: str = "tf32x3") -> int:
+    """32-bit words of the kernel's buffer for a route: per conv, the A
+    fragments and the bias."""
     shapes = [(16, 3 * in_channels)] + _EXPECTED_TAIL_SHAPES
-    return sum(2 * co * padded_k(kc) + co for co, kc in shapes)
+    return sum(fragment_floats(co, kc, route) + co for co, kc in shapes)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -191,70 +236,114 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def pack_conv(w: torch.Tensor) -> torch.Tensor:
-    """``W [Co, K*Ci]`` -> the kernel's mma.sync A fragments, flat.
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest bf16 value (ties to even, as ``astype`` and
+    ``cvt.rn.bf16.f32`` round), kept in fp32."""
+    return x.to(torch.bfloat16).float()
 
-    The kernel computes each conv as ``W @ im2col(x)`` on m16n8k8 TF32
-    products with W as the row-major A operand.  K is zero-padded to
-    ``padded_k``, W splits into ``big = tf32(W)`` and ``small =
-    tf32(W - big)``, and the layout is [K/8][Co/16][big, small][lane 32][4]:
-    for lane = 4 g + t, the fragment a0..a3 = W[16m + g, 8k + t],
-    W[16m + g + 8, 8k + t], W[16m + g, 8k + t + 4], W[16m + g + 8,
-    8k + t + 4] (one 16-byte load per lane for each of big and small, the
-    warp's 32 lanes on 512 contiguous bytes)."""
+
+def pack_conv(w: torch.Tensor, route: str = "tf32x3") -> torch.Tensor:
+    """``W [Co, K*Ci]`` -> the kernel's mma.sync A fragments for a route,
+    flat float32 words.
+
+    The kernel computes each conv as ``W @ im2col(x)`` with W as the
+    row-major A operand; K is zero-padded to ``padded_k``.
+
+    tf32x3 and tf32 (m16n8k8): ``big = tf32(W)`` and, for tf32x3, ``small =
+    tf32(W - big)``; the layout is [K/8][Co/16][big, small][lane 32][4]
+    (tf32: [K/8][Co/16][lane 32][4]): for lane = 4 g + t, a0..a3 =
+    W[16m + g, 8k + t], W[16m + g + 8, 8k + t], W[16m + g, 8k + t + 4],
+    W[16m + g + 8, 8k + t + 4] (one 16-byte load per lane and part, the
+    warp's 32 lanes on 512 contiguous bytes).
+
+    bf16 (m16n8k16): W is bf16-valued (the fold rounds it); the layout is
+    [K/16][Co/16][lane 32][4 words][2 halves].  The fragment's K order is
+    permuted so that a lane's register pairs hold channels t and t + 4 (and
+    t + 8, t + 12) of the k-step, not 2t and 2t + 1: the kernel then loads
+    its B fragments at the TF32 routes' conflict-free offsets.  Word 2 hc +
+    hr, half e of lane 4 g + t holds W[16m + 8 hr + g, 16k + 8 hc + 4 e +
+    t]."""
     co, kc = w.shape
-    kp = padded_k(kc)
+    kp = padded_k(kc, route)
     w = F.pad(w.float(), (0, kp - kc))
+    if route == "bf16":
+        # [m, hr, g, k, hc, e, t] -> [k, m, g, t, hc, hr, e]
+        frag = w.reshape(co // 16, 2, 8, kp // 16, 2, 2, 4).permute(
+            3, 0, 2, 6, 4, 1, 5)
+        return frag.to(torch.bfloat16).contiguous().reshape(-1).view(
+            torch.float32)
     big = tf32_round(w)
-    small = tf32_round(w - big)
     # [m, hr, g, k, hc, t] -> [k, m, g, t, hc, hr]: Co index 16m + 8hr + g,
     # K index 8k + 4hc + t, so a0..a3 = (hc, hr) = (0,0), (0,1), (1,0), (1,1)
     frag = lambda m: m.reshape(co // 16, 2, 8, kp // 8, 2, 4).permute(
         3, 0, 2, 5, 4, 1)
+    if route == "tf32":
+        return frag(big).reshape(-1)
+    small = tf32_round(w - big)
     return torch.stack([frag(big), frag(small)], dim=2).reshape(-1)
 
 
 @torch.no_grad()
-def fold_read_conv_weights(seq: L.Sequential) -> FoldedReadConv:
-    """Gate the topology, then fold the weight norm (once per parameter
-    set: the Scorer calls this at construction, not per batch)."""
+def fold_read_conv_weights(seq: L.Sequential,
+                           route: Optional[str] = None) -> FoldedReadConv:
+    """Gate the topology, then fold the weight norm for a kernel route
+    (default: the route of the precision in force, ``nn.layers.PRECISION``).
+    Once per parameter set: the Scorer calls this at construction, not per
+    batch."""
     check_read_convolver(seq)
+    route = route_for_precision(L.PRECISION) if route is None else route
+    if route not in ROUTE_IDS:
+        raise ValueError(f"unknown read-conv kernel route {route!r}")
     ws = [t.detach().float() for t in extract_read_conv_weights(seq)]
     convs = tuple(zip(ws[0::2], ws[1::2]))
+    if route == "bf16":
+        convs = tuple((bf16_round(w), b) for w, b in convs)
     flat = torch.cat([t for w, b in convs
-                      for t in (pack_conv(w), b)]).contiguous()
-    return FoldedReadConv(convs, flat, in_channels=convs[0][0].shape[1] // 3)
+                      for t in (pack_conv(w, route), b)]).contiguous()
+    return FoldedReadConv(convs, flat, in_channels=convs[0][0].shape[1] // 3,
+                          route=route)
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _conv(x, w, b, stride=1, padding=0):
+def _conv(x, w, b, stride=1, padding=0, conv=F.conv1d):
     co, kc = w.shape
     ci = x.shape[1]
     wt = w.reshape(co, kc // ci, ci).permute(0, 2, 1)
-    return F.conv1d(x, wt, b, stride=stride, padding=padding)
+    return conv(x, wt, b, stride=stride, padding=padding)
 
 
 def read_convolver_reference(rows: torch.Tensor,
                              folded: FoldedReadConv) -> torch.Tensor:
     """[nb, 150, C] -> per-row frames [nb, 36, 64] (NWC) with the folded
-    weights, as F.conv1d / F.max_pool1d calls."""
+    weights, as F.conv1d / F.max_pool1d calls.  The bf16 route rounds where
+    the Pallas kernel's bf16 ``compute_dtype`` does: each conv's biased fp32
+    sum once (on bf16-valued input and weights, so every product is exact),
+    each residual add's sum again; ReLU and max-pool act on bf16 values and
+    the frames come out bf16-valued, in fp32."""
     convs = iter(folded.convs)
+    if folded.route == "bf16":
+        r = bf16_round
+        conv = lambda x, **kw: r(_conv(x, *next(convs), conv=L.conv1d_bf16,
+                                       **kw))
+    else:
+        r = lambda t: t
+        conv = lambda x, **kw: _conv(x, *next(convs), **kw)
     x = rows.float().transpose(1, 2)                      # [nb, C, 150]
     for _ in range(3):                                    # stem -> 32 x 144
-        x = F.relu(_conv(x, *next(convs)))
+        x = F.relu(conv(x))
     x = F.max_pool1d(x, 3, 2)                             # 32 x 71
     for _ in range(3):
-        y = F.relu(_conv(x, *next(convs), padding=1))
-        x = x + F.relu(_conv(y, *next(convs), padding=1))
-    y = F.relu(_conv(x, *next(convs), stride=2, padding=1))   # 64 x 36
-    y = F.relu(_conv(y, *next(convs), padding=1))
-    x = y + _conv(x, *next(convs), stride=2)              # 1x1 shortcut
+        y = F.relu(conv(x, padding=1))
+        x = r(x + F.relu(conv(y, padding=1)))
+    y = F.relu(conv(x, stride=2, padding=1))              # 64 x 36
+    y = F.relu(conv(y, padding=1))
+    x = r(y + conv(x, stride=2))                          # 1x1 shortcut
     for _ in range(3):
-        y = F.relu(_conv(x, *next(convs), padding=1))
-        x = x + F.relu(_conv(y, *next(convs), padding=1))
+        y = F.relu(conv(x, padding=1))
+        x = r(x + F.relu(conv(y, padding=1)))
     return x.transpose(1, 2)
 
 
@@ -321,24 +410,24 @@ def _library():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
-            lib.read_conv_reduce_f32.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p]
-            lib.read_conv_reduce_f32.restype = ctypes.c_int
+            lib.read_conv_reduce_run.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.read_conv_reduce_run.restype = ctypes.c_int
             lib.read_conv_reduce_info.argtypes = [
-                ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+                ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
             lib.read_conv_reduce_info.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def kernel_info(channels: int) -> dict:
-    """The launch's shape on the current card: read rows per block, dynamic
-    shared memory and threads per block, resident blocks per SM."""
+def kernel_info(channels: int, route: str = "tf32x3") -> dict:
+    """A route's launch shape on the current card: read rows per block,
+    dynamic shared memory and threads per block, resident blocks per SM."""
     vals = [ctypes.c_int(0) for _ in range(4)]
-    err = _library().read_conv_reduce_info(channels,
-                                           *(ctypes.byref(v) for v in vals))
+    err = _library().read_conv_reduce_info(
+        channels, ROUTE_IDS[route], *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError(f"read_conv_reduce_info failed: cudaError {err}")
     keys = ("rows_per_block", "smem_bytes", "threads", "blocks_per_sm")
@@ -360,10 +449,13 @@ def _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles):
         raise TypeError(f"row_valid must be float32 [{nb}], got "
                         f"{row_valid.dtype} {tuple(row_valid.shape)}")
     flat = folded.flat
+    if folded.route not in ROUTE_IDS:
+        raise ValueError(f"unknown read-conv kernel route {folded.route!r}")
     if folded.in_channels != rows.shape[2] or flat.dtype != torch.float32 \
             or flat.dim() != 1 \
-            or flat.numel() != num_weight_floats(rows.shape[2]):
-        raise ValueError("folded weights do not match the rows' channel count")
+            or flat.numel() != num_weight_floats(rows.shape[2], folded.route):
+        raise ValueError("folded weights do not match the rows' channel "
+                         "count or their route's layout")
     if flat.data_ptr() % 16:
         raise ValueError("folded weights must be 16-byte aligned")
     for name, t in (("row_allele", row_allele), ("row_valid", row_valid),
@@ -381,13 +473,14 @@ def _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles):
 def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
                      row_valid: torch.Tensor, folded: FoldedReadConv,
                      num_alleles: int) -> torch.Tensor:
-    """Fused read convolver + per-allele sum -> [A, 36, 64] float32 (NWC).
+    """Fused read convolver + per-allele sum -> [A, 36, 64] float32 (NWC),
+    in the route the weights were folded for (``folded.route``).
 
     rows: uint8 [nb, 150, C]; row_allele: int32 [nb] (``A`` marks a padding
-    row, dropped); row_valid: float32 [nb].  CUDA tensors launch the kernel
-    on the current stream (``read_conv_reduce.launches`` and
-    ``folded.launches`` count launches); CPU tensors take
-    ``read_conv_reduce_reference``."""
+    row, dropped); row_valid: float32 [nb].  CUDA tensors launch the route's
+    kernel on the current stream (``read_conv_reduce.launches``, the
+    per-route ``read_conv_reduce.launches_by_route`` and ``folded.launches``
+    count launches); CPU tensors take ``read_conv_reduce_reference``."""
     if rows.device.type == "cpu":
         return read_conv_reduce_reference(rows, row_allele, row_valid,
                                           folded, num_alleles)
@@ -403,15 +496,22 @@ def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
     lib = _library()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.read_conv_reduce_f32(
-            rows.data_ptr(), nb, rows.shape[2], row_allele.data_ptr(),
-            row_valid.data_ptr(), folded.flat.data_ptr(), num_alleles,
-            out.data_ptr(), stream)
+        err = lib.read_conv_reduce_run(
+            rows.data_ptr(), nb, rows.shape[2], ROUTE_IDS[folded.route],
+            row_allele.data_ptr(), row_valid.data_ptr(),
+            folded.flat.data_ptr(), num_alleles, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"read_conv_reduce launch failed: cudaError {err}")
     read_conv_reduce.launches += 1
+    read_conv_reduce.launches_by_route[folded.route] += 1
     folded.launches += 1
     return out
 
 
-read_conv_reduce.launches = 0
+def reset_launches():
+    """Set every launch count of ``read_conv_reduce`` to 0."""
+    read_conv_reduce.launches = 0
+    read_conv_reduce.launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
+
+
+reset_launches()

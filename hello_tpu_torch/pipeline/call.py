@@ -5,7 +5,10 @@ regions -> candidate intervals -> site tensors (the native host engine,
 shared with hello_tpu) -> batched scoring on the card (wire expansion, the
 MoE forward with the CUDA read-convolver kernel, genotype decode) -> sorted
 VCF.  ``call_region`` / ``call_genome`` are the library surface; ``main``
-is the CLI (``python -m hello_tpu_torch.pipeline.call``).  Two BAMs
+is the CLI (``python -m hello_tpu_torch.pipeline.call``), which runs at
+``--precision bf16`` unless told otherwise and hands whole genomes to the
+worker-pool caller (pipeline/parallel_call.call_parallel) with
+``--num_workers N``, as hello_tpu's CLI does.  Two BAMs
 (Illumina, PacBio) call with a hybrid model; ``provide_experts``
 (``--provide_features``) adds the per-expert, best and mean VCF streams, the
 meta-expert's choices and the per-site features.
@@ -33,7 +36,7 @@ from ..constants import FEATURE_LENGTH
 from ..io.fasta import FastaFile
 from ..io.vcf import VcfRecord, make_record, write_vcf
 from ..nn.genotype import decode_batch
-from ..nn.layers import ROADMAP_PRECISION, set_precision
+from ..nn import layers as nn_layers
 from ..nn.moe import MoEAttention, create_model
 from .batching import PaddedBatch, SiteWork, group_sites_for_batching, pack_sites
 from .candidates import generate_sites
@@ -43,6 +46,7 @@ from .hotspots import (candidate_intervals, cluster_hotspots, detect_hotspots,
 logger = logging.getLogger(__name__)
 
 ROADMAP_WAITS = "ROADMAP.md Queue 1"
+ROADMAP_PROFILE = "ROADMAP.md Queue 1 item 10"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -86,7 +90,7 @@ class Scorer:
                  packed_conv: Optional[bool] = None,
                  device_decode: bool = True):
         self.device = resolve_device(device)
-        set_precision("highest")           # the only precision ported yet
+        self.precision = nn_layers.PRECISION
         self.model = model.to(self.device).eval()
         on_card = self.device.type == "cuda"
         self.compact = on_card if compact is None else compact
@@ -517,15 +521,28 @@ def main(argv=None):
     parser.add_argument("--reconcilement_size", type=int, default=10)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    # fp32 everywhere with TF32 off; hello_tpu's CLI defaults to bf16
-    parser.add_argument("--precision", default="highest",
-                        help="highest (fp32); default and bf16 are not "
-                             "ported yet")
+    # hello_tpu's default: bf16 conv activations on the card's bf16 route
+    parser.add_argument("--precision", default=os.environ.get(
+        "HELLO_TPU_PRECISION", "bf16"),
+                        help="bf16 (default; bf16 conv activations) | "
+                             "default (TF32 products, fp32 activations) | "
+                             "high | highest (fp32)")
     parser.add_argument("--num_workers", type=int, default=0,
-                        help="host worker processes; only 0 is ported")
+                        help="host worker processes (0 = in-process)")
+    parser.add_argument("--chunk_size", type=int, default=200_000)
+    parser.add_argument("--spill_records", type=int, default=400_000,
+                        help="worker-pool caller: spill sorted record runs "
+                        "to disk beyond this many in-memory records and "
+                        "stream-merge at the end (bounds RSS on "
+                        "whole-genome runs)")
+    parser.add_argument("--process_index", type=int, default=0,
+                        help="this host's index for multi-host region sharding")
+    parser.add_argument("--process_count", type=int, default=1,
+                        help="total hosts sharing the work")
     parser.add_argument("--provide_features", action="store_true",
                         help="also write per-expert, best and mean VCFs, the "
-                             "meta-expert's choices and per-site features")
+                             "meta-expert's choices and per-site features "
+                             "(in-process calling only)")
     parser.add_argument("--profile_dir", default=None,
                         help="device trace directory (not ported yet)")
     parser.add_argument("--log", default=None)
@@ -534,14 +551,11 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, filename=args.log,
                         format="%(asctime)s %(levelname)s %(message)s")
 
-    if args.precision != "highest":
-        parser.error(f"--precision {args.precision} is not ported yet; only "
-                     f"highest is ({ROADMAP_PRECISION})")
-    if args.num_workers != 0:
-        parser.error(f"--num_workers > 0 (call_parallel) is not ported yet "
-                     f"({ROADMAP_WAITS})")
     if args.profile_dir:
-        parser.error(f"--profile_dir is not ported yet ({ROADMAP_WAITS})")
+        parser.error(f"--profile_dir is not ported yet ({ROADMAP_PROFILE})")
+    if args.precision not in nn_layers.PRECISIONS:
+        parser.error(f"--precision {args.precision} is not one of "
+                     f"{', '.join(nn_layers.PRECISIONS)}")
     bams = args.bam.split(",")
     for bam in bams:
         if not os.path.exists(bam):
@@ -562,18 +576,43 @@ def main(argv=None):
         else:
             regions = [(parts[0], int(parts[1]), int(parts[2]))]
 
+    nn_layers.set_precision(args.precision)
     scorer = load_scorer(args.model, args.checkpoint, seed=args.seed,
                          device=args.device)
     want = 2 if scorer.model.hybrid else 1
     if len(bams) != want:
         parser.error(f"--model {args.model} takes {want} BAM(s) "
                      f"(illumina[,pacbio]), got {len(bams)}")
-    call_genome(bams, args.ref, scorer, args.out, regions=regions,
-                pacbio=args.pacbio, include_hp=args.include_hp,
-                hybrid_hotspot=args.hybrid_hotspot,
-                q_threshold=args.q_threshold, min_mapq=args.mapq_threshold,
-                reassembly_size=args.reconcilement_size,
-                provide_experts=args.provide_features)
+
+    if args.process_count > 1:
+        from ..parallel.mesh import shard_regions
+        ref = FastaFile(args.ref)
+        if regions is None:
+            regions = [(c, 0, ref.length(c)) for c in ref.chromosomes()]
+        # 4 Mb granules: hosts get near-equal base counts regardless of
+        # chromosome size skew (see shard_regions)
+        regions = shard_regions(regions, args.process_index,
+                                args.process_count, granularity=4_000_000)
+        logger.info("host %d/%d handles %d region pieces", args.process_index,
+                    args.process_count, len(regions))
+
+    options = dict(pacbio=args.pacbio, include_hp=args.include_hp,
+                   hybrid_hotspot=args.hybrid_hotspot,
+                   q_threshold=args.q_threshold, min_mapq=args.mapq_threshold,
+                   reassembly_size=args.reconcilement_size)
+    if args.num_workers > 0:
+        from .parallel_call import call_parallel
+        if args.provide_features:
+            logger.warning("--provide_features is written by in-process "
+                           "calling only; --num_workers %d ignores it",
+                           args.num_workers)
+        call_parallel(bams, args.ref, scorer, args.out, regions=regions,
+                      num_workers=args.num_workers,
+                      chunk_size=args.chunk_size,
+                      spill_records=args.spill_records, **options)
+    else:
+        call_genome(bams, args.ref, scorer, args.out, regions=regions,
+                    provide_experts=args.provide_features, **options)
     telemetry.log_report()
     logger.info("Completed running the script")
 

@@ -1,17 +1,295 @@
-"""Asynchronous result draining for the calling loop.
+"""Process-parallel calling: host stages in a worker pool feeding scoring
+on the card in the main process.
 
-This slice ports only what ``call_region`` needs from hello_tpu's
-pipeline/parallel_call.py: ``_out_ready`` and ``_AsyncDrainer``.  The
-worker-pool caller ``call_parallel`` waits for a later slice (ROADMAP.md
-Queue 1).
+The port of hello_tpu's pipeline/parallel_call.py.  Worker processes run
+the host stages (BAM fetch -> hotspots -> candidates -> featurization, the
+native engine shared with hello_tpu) for genome chunks and ship each
+chunk's sites back on the coded wire as one ``CodedChunkBlock``; the main
+process owns the card: it packs batches, dispatches them through
+``Scorer.score_async(decode=True)`` (pinned uploads, an event after the
+results' copies) and decodes behind the device.  Workers never touch the
+card: it is hidden from them before they start (``_spawn_env``).
+Multi-host scale-out hands each host a share of the regions
+(``parallel.mesh.shard_regions``); the per-host VCFs merge at the end.
+
+``call_region`` (pipeline/call.py) shares ``_out_ready`` and
+``_AsyncDrainer``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import logging
+import multiprocessing as mp
+import os
 import threading
 import time
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
+
+from ..constants import FEATURE_LENGTH
+from ..io.fasta import FastaFile
+from ..io.vcf import VcfRecord, write_vcf
+from ..nn.genotype import decode_batch
+from .batching import CodedSiteWork, group_sites_for_batching, pack_sites
+from .call import Scorer, vcf_record_from_call
+from .candidates import generate_sites
+from .hotspots import (candidate_intervals, cluster_hotspots, detect_hotspots,
+                       make_read_sources)
+
+logger = logging.getLogger(__name__)
+
+_SENTINEL = "__done__"
+
+# per-process FastaFile cache: a worker serves thousands of chunk jobs for
+# the same reference; reopening per job would re-read the .fai (or, absent
+# one, re-scan the whole FASTA) every time
+_FASTA_CACHE: dict = {}
+
+
+def _cached_fasta(path: str) -> FastaFile:
+    key = (path, os.path.getmtime(path))
+    if key not in _FASTA_CACHE:
+        _FASTA_CACHE.clear()        # one reference per run; drop stale entries
+        _FASTA_CACHE[key] = FastaFile(path)
+    return _FASTA_CACHE[key]
+
+
+def host_sites_for_chunk(bam_paths, ref_path, chromosome, start, stop,
+                         options) -> List:
+    """Host-side stages for one genome chunk; returns SiteWork list."""
+    import random
+
+    # fault injection for recovery tests: the first chunk to observe a
+    # missing marker file creates it and fails (a transient, once-only fault)
+    marker = options.get("fail_once_marker")
+    if marker and not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("injected transient fault")
+
+    ref = _cached_fasta(ref_path)
+    rng = random.Random(options.get("seed", 13))
+
+    # fast path: the entire chunk pipeline in one native call (identical
+    # output to the staged pipeline below — see tests/test_native_chunk.py)
+    from .candidates import native_chunk_site_work
+    fast = native_chunk_site_work([str(p) for p in bam_paths], ref,
+                                  chromosome, start, stop, options, rng)
+    if fast is not None:
+        return _maybe_encode(fast, options)
+
+    pacbio = options.get("pacbio", False)
+    kwargs = dict(
+        pacbio=pacbio,
+        hybrid_hotspot=options.get("hybrid_hotspot", False),
+        q_threshold=options.get("q_threshold", 10),
+        min_mapq=options.get("min_mapq", 10),
+    )
+    hotspot_sources = make_read_sources(bam_paths, pacbio, for_hotspots=True,
+                                        rng=rng, region=(chromosome, start, stop))
+    positions = detect_hotspots(hotspot_sources, ref, chromosome, start, stop,
+                                **kwargs)
+    if not positions:
+        return []
+    active = cluster_hotspots(positions)
+    sources = make_read_sources(bam_paths, pacbio, rng=rng,
+                                region=(chromosome, start, stop))
+    intervals, windows = candidate_intervals(
+        sources, ref, chromosome, active,
+        include_hp=options.get("include_hp", False),
+        reassembly_size=options.get("reassembly_size", 10),
+        provide_windows=True, **kwargs)
+    sites = [s for s in generate_sites(
+        sources, ref, chromosome, intervals, windows=windows,
+        include_hp=options.get("include_hp", False),
+        feature_length=options.get("feature_length", FEATURE_LENGTH),
+        reassembly_size=options.get("reassembly_size", 10),
+        pacbio=pacbio,
+        hybrid_hotspot=options.get("hybrid_hotspot", False),
+        q_threshold=options.get("q_threshold", 10),
+        min_mapq=options.get("min_mapq", 10))
+        if s is not None and s.alleles]
+    return _maybe_encode(sites, options)
+
+
+def _maybe_encode(sites, options):
+    """Re-encode a chunk's sites into the 1-byte coded wire representation
+    (CodedSiteWork) when the run requested it: ~6x less worker->main IPC and
+    no dense batch assembly in the device-owning process.  The native chunk
+    orchestrator usually emits CodedSiteWork directly (code-on-copy, no
+    dense tensors at all) — this pass covers the staged Python pipeline and
+    falls back to the dense list if any site cannot be coded (never true of
+    featurizer output)."""
+    if hasattr(sites, "to_sites"):      # CodedChunkBlock: already coded
+        return sites
+    if options.get("wire") == "coded" and sites \
+            and not isinstance(sites[0], CodedSiteWork):
+        from .compact import encode_chunk_sites
+        coded = encode_chunk_sites(sites)
+        if coded is not None:
+            return coded
+    return sites
+
+
+def _worker(job_queue, result_queue):
+    """Worker loop: consume (run_id, bam_paths, ref_path, options, chrom,
+    start, stop) jobs, emit (status, run_id, region, payload) messages.
+    Workers are generic (the job carries the data sources) so one pool serves
+    a whole run; per-process BAM/index caches are keyed by path and persist
+    across jobs."""
+    # eager imports: charge module-import cost (torch + the port, seconds)
+    # to pool startup, not to the first job
+    from . import candidates as _c, hotspots as _h  # noqa: F401
+    from .. import native as _n
+    _n.load_library()
+    result_queue.put(("ready", None, None, None))
+    while True:
+        job = job_queue.get()
+        if job == _SENTINEL:
+            return
+        run_id, bam_paths, ref_path, options, chromosome, start, stop = job
+        region = (chromosome, start, stop)
+        try:
+            sites = host_sites_for_chunk(bam_paths, ref_path, chromosome,
+                                         start, stop, options)
+            result_queue.put(("ok", run_id, region, sites))
+        except Exception as exc:  # report and continue: recovery = rerun shard
+            result_queue.put(("error", run_id, region, repr(exc)))
+
+
+def _require_importable_main():
+    # spawn requires an importable __main__; scripts piped via stdin hang here
+    import __main__ as _main
+    main_file = getattr(_main, "__file__", None)
+    importable = bool(getattr(_main, "__spec__", None)) or (
+        main_file is not None and os.path.exists(main_file))
+    if not importable:
+        raise RuntimeError(
+            "HostWorkerPool uses multiprocessing 'spawn', which needs an "
+            "importable __main__ — run from a file or module, not stdin")
+
+
+@contextlib.contextmanager
+def _spawn_env():
+    """Hide the card from processes started inside: CUDA_VISIBLE_DEVICES is
+    empty while they start, so a spawned worker inherits it before it
+    imports torch and can never create a CUDA context.  The parent
+    initialises CUDA first (``torch.cuda.is_available``), so the parent
+    keeps its card whatever another thread does meanwhile."""
+    import torch
+
+    torch.cuda.is_available()
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+
+
+class HostWorkerPool:
+    """Persistent pool of host-stage worker processes.
+
+    Worker startup (process spawn + torch and port imports) costs seconds
+    per worker; a production genome run pays it once and amortises it over
+    thousands of chunks.  Create the pool once, pass it to any number of
+    :func:`call_parallel` invocations, and ``shutdown()`` when done.
+
+    Single-consumer: one ``call_parallel`` drives the pool at a time.
+    """
+
+    def __init__(self, num_workers: int = 4):
+        _require_importable_main()
+        ctx = mp.get_context("spawn")
+        self.num_workers = num_workers
+        self._job_queue = ctx.Queue()
+        self._result_queue = ctx.Queue()
+        self._ready = 0
+        # run token: results carry the submitting run's id so a consumer can
+        # discard leftovers from an aborted previous call_parallel (reusing
+        # the pool after an error must not mix runs' sites)
+        self._run_id = 0
+        self._workers = [
+            ctx.Process(target=_worker,
+                        args=(self._job_queue, self._result_queue),
+                        daemon=True)
+            for _ in range(num_workers)]
+        with _spawn_env():
+            for w in self._workers:
+                w.start()
+
+    def _check_alive(self):
+        # ANY dead worker while results are awaited is abnormal (workers only
+        # exit on the shutdown sentinel) — including a clean exit code 0,
+        # which would otherwise leave the consumer polling to the timeout
+        dead = [w for w in self._workers if not w.is_alive()]
+        if dead:
+            raise RuntimeError(
+                f"{len(dead)} pool worker(s) died "
+                f"(exitcodes {[w.exitcode for w in dead]}); see worker stderr")
+
+    def _get(self, timeout: float):
+        """Queue get that notices dead workers instead of blocking forever."""
+        import queue as _q
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return self._result_queue.get(timeout=5.0)
+            except _q.Empty:
+                self._check_alive()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"no worker result within {timeout:.0f}s")
+
+    def wait_ready(self, timeout: float = 300.0):
+        """Block until every worker has finished its imports."""
+        while self._ready < self.num_workers:
+            msg = self._get(timeout)
+            assert msg[0] == "ready", msg
+            self._ready += 1
+
+    def new_run(self) -> int:
+        """Start a new logical run: later ``results`` calls discard messages
+        from earlier runs (leftovers of an aborted consumer must not leak
+        into the next run's call set)."""
+        self._run_id += 1
+        return self._run_id
+
+    def submit(self, bam_paths, ref_path, options, chunk):
+        chromosome, start, stop = chunk
+        self._job_queue.put((self._run_id, list(bam_paths), ref_path,
+                             dict(options), chromosome, start, stop))
+
+    def results(self, n: int, timeout: float = 3600.0):
+        """Yield n ('ok'|'error', region, payload) messages of the CURRENT
+        run as they arrive; stale runs' messages are dropped."""
+        got = 0
+        while got < n:
+            msg = self._get(timeout)
+            if msg[0] == "ready":          # late startup acks interleave
+                self._ready += 1
+                continue
+            status, run_id, region, payload = msg
+            if run_id != self._run_id:     # aborted previous run's leftovers
+                continue
+            got += 1
+            yield (status, region, payload)
+
+    def shutdown(self):
+        for _ in self._workers:
+            self._job_queue.put(_SENTINEL)
+        for w in self._workers:
+            w.join(timeout=30)
+        self._workers = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
 
 
 def _out_ready(out) -> bool:
@@ -158,3 +436,510 @@ class _AsyncDrainer:
             with self._cv:
                 self._exc = exc
                 self._cv.notify_all()
+
+
+class _AsyncStager:
+    """Background pack + host->device dispatch stage.
+
+    The upstream mirror of :class:`_AsyncDrainer`: batch packing and the
+    upload + dispatch of each batch run on their own threads.  The main
+    loop only appends site groups to a bounded queue and returns to
+    consuming worker results.  Backpressure chains naturally: the drainer's
+    in-flight window fills -> ``drainer.put`` blocks the stager -> the stager
+    queue fills -> the main loop blocks in ``put`` (accounted as
+    ``stage_backpressure_s``).
+
+    ``close`` drains the queues, joins the threads, and re-raises any
+    staging failure.  Groups dispatch strictly in arrival order (the
+    drainer bulk fetch assumes the oldest dispatched batch finishes first).
+
+    With ``dispatch_fn`` the stager runs TWO pipelined threads: a PACK
+    thread runs ``stage_fn(group) -> item`` (batch assembly, host numpy)
+    and a DISPATCH thread runs ``dispatch_fn(item)`` (the pinned upload and
+    the forward's launches).  Without it the single thread runs
+    ``stage_fn`` alone (packing and dispatching inside)."""
+
+    def __init__(self, stage_fn, t_acc, max_groups: int = 8,
+                 dispatch_fn=None, max_packed: int = 4):
+        self._stage = stage_fn
+        self._dispatch = dispatch_fn
+        self._t_acc = t_acc
+        self._max = max_groups
+        self._max_packed = max_packed
+        self._q: collections.deque = collections.deque()
+        self._q2: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._done = False
+        self._pack_done = False
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="hello-tpu-pack")
+        self._thread.start()
+        self._dispatch_thread = None
+        if dispatch_fn is not None:
+            self._dispatch_thread = threading.Thread(
+                target=self._run_dispatch, daemon=True,
+                name="hello-tpu-dispatch")
+            self._dispatch_thread.start()
+
+    def put(self, group):
+        t0 = time.perf_counter()
+        with self._cv:
+            while len(self._q) >= self._max and self._exc is None:
+                self._cv.wait()
+            if self._exc is not None:
+                raise self._exc
+            self._q.append(group)
+            self._cv.notify_all()
+        self._t_acc["stage_backpressure_s"] += time.perf_counter() - t0
+
+    def close(self, abort: bool = False):
+        """Drain the queues and join; ``abort=True`` discards queued groups
+        instead (an aborting caller must not dispatch more device work)."""
+        with self._cv:
+            if abort:
+                self._q.clear()
+                self._q2.clear()
+            self._done = True
+            self._cv.notify_all()
+        self._thread.join()
+        with self._cv:
+            if abort:
+                self._q2.clear()
+            self._pack_done = True
+            self._cv.notify_all()
+        if self._dispatch_thread is not None:
+            self._dispatch_thread.join()
+        if self._exc is not None:
+            raise self._exc
+
+    def _run(self):
+        try:
+            while True:
+                with self._cv:
+                    while not self._q and not self._done \
+                            and self._exc is None:
+                        self._cv.wait()
+                    if self._exc is not None:
+                        return
+                    if not self._q and self._done:
+                        return
+                    group = self._q.popleft()
+                    self._cv.notify_all()
+                item = self._stage(group)
+                if self._dispatch is None:
+                    continue
+                with self._cv:
+                    while (len(self._q2) >= self._max_packed
+                           and self._exc is None):
+                        self._cv.wait()
+                    if self._exc is not None:
+                        return
+                    self._q2.append(item)
+                    self._cv.notify_all()
+        except BaseException as exc:   # surfaced by put()/close()
+            with self._cv:
+                self._exc = exc
+                self._cv.notify_all()
+
+    def _run_dispatch(self):
+        try:
+            while True:
+                with self._cv:
+                    while not self._q2 and not self._pack_done \
+                            and self._exc is None:
+                        self._cv.wait()
+                    if self._exc is not None:
+                        return
+                    if not self._q2 and self._pack_done:
+                        return
+                    item = self._q2.popleft()
+                    self._cv.notify_all()
+                self._dispatch(item)
+        except BaseException as exc:   # surfaced by put()/close()
+            with self._cv:
+                self._exc = exc
+                self._cv.notify_all()
+
+
+class _RecordSpiller:
+    """Bounds the caller's in-memory VCF record set.
+
+    Records accumulate in memory until ``threshold``; then the current set
+    is sorted and spilled to a temp shard next to the output, and
+    ``finish`` streams a k-way merge of the spills plus the in-memory tail
+    (io.vcf.merge_vcfs) — whole-genome runs hold O(threshold) records
+    instead of every record of the genome.  Below the threshold the
+    behavior is byte-identical to the old sort-everything-and-write path.
+
+    add() is called only from the drainer thread; finish() only after the
+    drainer is joined — no locking needed."""
+
+    def __init__(self, out_vcf: str, contigs, threshold: int):
+        from ..io.vcf import record_sort_key
+        self.out_vcf = out_vcf
+        self.contigs = contigs
+        # a non-positive threshold means "never spill" (a user passing 0 to
+        # disable spilling must not get one spill file per record)
+        self.threshold = threshold if threshold >= 1 else float("inf")
+        self.key = record_sort_key(contigs)
+        self.records: List[VcfRecord] = []
+        self.paths: List[str] = []
+        self.count = 0
+
+    def add(self, rec: VcfRecord):
+        self.records.append(rec)
+        self.count += 1
+        if len(self.records) >= self.threshold:
+            self._spill()
+
+    def _spill(self):
+        self.records.sort(key=self.key)
+        path = f"{self.out_vcf}.spill{len(self.paths)}.tmp.vcf"
+        write_vcf(path, self.records, sort=False)
+        self.paths.append(path)
+        self.records = []
+
+    def finish(self) -> int:
+        from ..io.vcf import merge_vcfs
+        if not self.paths:
+            write_vcf(self.out_vcf, self.records, contigs=self.contigs,
+                      sort=True)
+            return self.count
+        if self.records:
+            self._spill()
+        try:
+            merge_vcfs(self.paths, self.out_vcf, contigs=self.contigs)
+        finally:
+            self.cleanup()
+        return self.count
+
+    def cleanup(self):
+        for p in self.paths:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        self.paths = []
+
+
+def make_chunks(regions: Sequence[Tuple[str, int, int]],
+                chunk_size: int = 200_000):
+    """Split regions into worker-sized genome chunks."""
+    from ..parallel.mesh import split_regions
+    return split_regions(regions, chunk_size)
+
+
+def call_parallel(bam_paths: Sequence[str], ref_path: str, scorer: Scorer,
+                  out_vcf: str,
+                  regions: Optional[Sequence[Tuple[str, int, int]]] = None,
+                  num_workers: int = 4,
+                  chunk_size: int = 200_000,
+                  # hello_tpu's budgets: the first batch of each read-bucket
+                  # class forms at max_alleles_per_batch, so scoring starts
+                  # early and overlaps host production; once a class has
+                  # flushed, its budget ramps to saturation_alleles.  Both
+                  # ramp steps are a deterministic function of the per-class
+                  # flush count, never of arrival timing, so batch shapes
+                  # stay a function of the workload (buffer_sites's NOTE).
+                  # Set them equal to disable the ramp.  Not yet tuned on the
+                  # H100 (ROADMAP Queue 1 item 13).
+                  max_alleles_per_batch: int = 1024,
+                  saturation_alleles: int = 2048,
+                  include_hp: bool = False,
+                  stats: Optional[dict] = None,
+                  pool: Optional[HostWorkerPool] = None,
+                  class_by_read_bucket: bool = True,
+                  # in-memory record bound: beyond this, sorted runs spill
+                  # to disk and the final output is a streamed k-way merge
+                  # (whole-genome RSS stays O(spill_records), not O(genome))
+                  spill_records: int = 400_000,
+                  **options) -> str:
+    """Parallel genome calling into a sorted VCF.
+
+    Worker processes produce SiteWork; the main process scores batches on the
+    device as results stream in (device compute overlaps host production).
+
+    ``pool``: a :class:`HostWorkerPool` to reuse (caller owns shutdown);
+    without one, a transient pool of ``num_workers`` is created for the call.
+    """
+    ref = FastaFile(ref_path)
+    if regions is None:
+        regions = [(c, 0, ref.length(c)) for c in ref.chromosomes()]
+    options = dict(options)
+    options.setdefault("include_hp", include_hp)
+    # Real Scorers take the coded wire end-to-end: workers ship CodedSiteWork
+    # (1 byte/cell + row scalars), the main process packs wire dicts with no
+    # dense intermediate, and the card rebuilds the tensors.
+    # Duck-typed scorers (tests, oracles) get dense SiteWork + PaddedBatch.
+    if getattr(scorer, "accepts_wire", False):
+        options.setdefault("wire", "coded")
+        # one consolidated IPC payload per chunk (CodedChunkBlock) instead
+        # of thousands of per-site array pickles; expanded to the identical
+        # CodedSiteWork views in the result loop below
+        options.setdefault("chunk_block", True)
+
+    jobs = list(make_chunks(regions, chunk_size))
+    own_pool = pool is None
+    if own_pool:
+        pool = HostWorkerPool(num_workers)
+    pool.new_run()     # discard any aborted previous run's leftovers
+    for job in jobs:
+        pool.submit(bam_paths, ref_path, options, job)
+
+    ref_lookup = lambda chrom, pos: ref.fetch(chrom, pos, pos + 1)
+    hybrid_model = scorer.model.hybrid
+    contigs = {c: ref.length(c) for c in ref.chromosomes()}
+    spiller = _RecordSpiller(out_vcf, contigs, threshold=spill_records)
+    failures = []
+    completed = 0
+
+    # Pipelined scoring: the stager's threads pack and dispatch (the card
+    # runs asynchronously), a background drainer (_AsyncDrainer) waits for
+    # device results and runs genotype decode + record assembly — so the
+    # card's latency overlaps host production AND dispatch instead of
+    # serialising the loop.
+    MAX_IN_FLIGHT = getattr(scorer, "max_in_flight", 3)
+    _score_async = getattr(scorer, "score_async", None)
+    if _score_async is not None and getattr(scorer, "device_decode", False):
+        # genotype decode on the card after the forward: fetch winner
+        # indices + probability (13 bytes/site) instead of logit tensors
+        _dispatch = lambda b: _score_async(b, decode=True)
+    elif _score_async is not None:
+        _dispatch = _score_async
+    else:
+        _dispatch = scorer
+    # stage accounting (seconds), reported through ``stats``.  MAIN-THREAD
+    # stages (these bound the loop): wait = blocked on worker results
+    # (host-stage bound), stage_backpressure = blocked on the full stager
+    # queue (device/upload bound).  STAGER-THREAD stages (overlap the main
+    # loop): pack = batch assembly, dispatch = pinned upload + the
+    # forward's launches, backpressure = stager blocked on the drainer's
+    # full in-flight window.  DRAINER-THREAD stages (overlap both):
+    # drain/fetch/decode.  Off-main-thread stages only bound the wall clock
+    # when the device or the upload is the true bottleneck.
+    t_acc = {"wait_s": 0.0, "pack_s": 0.0, "dispatch_s": 0.0,
+             "stage_backpressure_s": 0.0,
+             "backpressure_s": 0.0, "drain_s": 0.0, "fetch_s": 0.0,
+             "decode_s": 0.0}
+
+    def _on_result(group, batch, fin):
+        if isinstance(fin, dict) and "best_i" in fin:
+            from ..nn.genotype import calls_from_device_decode
+            calls = calls_from_device_decode(fin, batch.allele_site_index,
+                                             group)
+        else:
+            experts, meta = fin
+            calls = decode_batch(experts, meta, batch.allele_site_index,
+                                 group, full=False)
+        for call in calls:
+            rec = vcf_record_from_call(call, ref_lookup)
+            if rec is not None:
+                spiller.add(rec)
+
+    drainer = _AsyncDrainer(scorer, _on_result, t_acc, MAX_IN_FLIGHT)
+
+    def pack_group(group):
+        t0 = time.perf_counter()
+        if isinstance(group[0], CodedSiteWork):
+            from .compact import pack_sites_wire
+            batch = pack_sites_wire(
+                group, hybrid=hybrid_model,
+                feature_length=options.get("feature_length", FEATURE_LENGTH))
+        else:
+            batch = pack_sites(group, hybrid=hybrid_model,
+                               feature_length=options.get("feature_length",
+                                                          FEATURE_LENGTH),
+                               channels0=7 if include_hp else 6,
+                               channels1=7 if include_hp else 6)
+        t_acc["pack_s"] += time.perf_counter() - t0
+        return (group, batch)
+
+    def dispatch_group(item):
+        group, batch = item
+        t0 = time.perf_counter()
+        out = _dispatch(batch)
+        t_acc["dispatch_s"] += time.perf_counter() - t0
+        drainer.put(group, batch, out)
+
+    # batch packing and upload + dispatch run on their own pipelined
+    # threads; the main loop only queues site groups
+    stager = _AsyncStager(pack_group, t_acc, dispatch_fn=dispatch_group)
+
+    # Sites are buffered ACROSS chunk results so the device sees full
+    # max_alleles_per_batch batches: per-chunk site counts are small, and
+    # dispatch latency (not FLOPs) dominates under-filled batches.
+    # Buffers are keyed by read-bucket
+    # class so a batch's padded read width matches its own sites' depth (one
+    # deep site would otherwise inflate every site's conv rows); the VCF is
+    # position-sorted at the end, so cross-class emission order is free.
+    from .batching import site_read_bucket, site_row_counts
+    pending: dict = {}            # read-bucket class -> [SiteWork]
+    pending_alleles: dict = {}    # read-bucket class -> allele count
+    pending_rows: dict = {}       # read-bucket class -> per-platform rows
+    # per-class allele budget: first flush at max_alleles_per_batch (early
+    # device overlap), then ramped to the saturation point (see the
+    # saturation_alleles parameter note)
+    saturation = max(saturation_alleles, max_alleles_per_batch)
+    budgets: dict = {}
+    # coded classes bound for the packed-row convolution also budget their
+    # real read rows (batching.row_budgets_for_class); key[0] is the class's
+    # coded-ness, key[1:] its per-platform read buckets
+    from .call import row_budget_frac
+    row_frac = row_budget_frac(scorer)
+
+    def class_budget(key) -> int:
+        return budgets.get(key, max_alleles_per_batch)
+
+    def class_row_budgets(key):
+        if not (row_frac and key[0] and len(key) > 1):
+            return None
+        from .batching import row_budgets_for_class
+        return row_budgets_for_class(key[1:], class_budget(key), row_frac)
+
+    def flush_class(key, keep_tail=True):
+        groups = list(group_sites_for_batching(
+            pending[key], class_budget(key),
+            _row_budgets=class_row_budgets(key)))
+        tail = groups.pop() if (keep_tail and groups) else None
+        for group in groups:
+            stager.put(group)
+            budgets[key] = saturation
+        if tail is not None and keep_tail:
+            pending[key] = list(tail)
+            pending_alleles[key] = sum(len(t.alleles) for t in tail)
+            pending_rows[key] = [sum(r) for r in zip(
+                *(site_row_counts(t) for t in tail))]
+        else:
+            pending[key] = []
+            pending_alleles[key] = 0
+            pending_rows[key] = None
+
+    def buffer_sites(sites):
+        """Accumulate sites per class; flush any class at its batch budget
+        (allele count, or real read rows for packed-row coded classes).
+        Coded and dense sites never share a batch (a chunk that fell back to
+        dense must not poison a coded batch's packer)."""
+        for s in sites:
+            key = (isinstance(s, CodedSiteWork),) + (
+                site_read_bucket(s) if class_by_read_bucket else (0,))
+            pending.setdefault(key, []).append(s)
+            pending_alleles[key] = pending_alleles.get(key, 0) + len(s.alleles)
+            full = pending_alleles[key] >= class_budget(key)
+            rb = class_row_budgets(key)
+            if rb is not None:
+                r = site_row_counts(s)
+                acc = pending_rows.get(key)
+                if acc is None:
+                    acc = [0] * len(r)
+                for i in range(len(r)):
+                    acc[i] += r[i]
+                pending_rows[key] = acc
+                full = full or any(acc[i] >= rb[i] for i in range(len(r)))
+            if full:
+                flush_class(key)
+        # NOTE: no opportunistic partial flushing here.  Flushing "when the
+        # device looks idle" makes batch shapes a function of ARRIVAL
+        # TIMING, and the records of a run would then depend on it (batch
+        # composition changes accumulation order); hello_tpu, where each
+        # new shape also compiles, found the same trap.  Shapes stay a
+        # deterministic function of the workload; overlap comes from the
+        # allele budget (smaller budget = more, earlier batches).
+
+    body_ok = False
+    try:
+        _results = pool.results(len(jobs))
+        while True:
+            t0 = time.perf_counter()
+            msg = next(_results, None)
+            t_acc["wait_s"] += time.perf_counter() - t0
+            if msg is None:
+                break
+            status, job, payload = msg
+            if status == "error":
+                failures.append((job, payload))
+                logger.error("chunk %s failed: %s", job, payload)
+                continue
+            completed += 1
+            if hasattr(payload, "to_sites"):   # CodedChunkBlock -> site views
+                payload = payload.to_sites()
+            if stats is not None:
+                stats["sites"] = stats.get("sites", 0) + len(payload)
+            buffer_sites(payload)
+            if completed % 20 == 0:
+                logger.info("completed %d/%d chunks (%d records)",
+                            completed, len(jobs), spiller.count)
+        # recovery = rerun failed shard (the reference's model): failed chunks
+        # get one retry — a transient worker fault (OOM kill, IO hiccup)
+        # should not abort a genome-scale run; a deterministic fault raises
+        if failures:
+            retry = [job for job, _ in failures]
+            logger.warning("retrying %d failed chunk(s)", len(retry))
+            failures = []
+            for job in retry:
+                pool.submit(bam_paths, ref_path, options, job)
+            for status, job, payload in pool.results(len(retry)):
+                if status == "error":
+                    failures.append((job, payload))
+                    continue
+                if hasattr(payload, "to_sites"):
+                    payload = payload.to_sites()
+                if stats is not None:
+                    stats["sites"] = stats.get("sites", 0) + len(payload)
+                buffer_sites(payload)
+
+        for key in sorted(pending):
+            for group in group_sites_for_batching(pending[key],
+                                                  class_budget(key)):
+                stager.put(group)
+        body_ok = True
+    finally:
+        # join stager first (it feeds the drainer), then the drainer
+        # (records are only complete — and only safely readable — after it
+        # returns); re-raises staging/consumer failures, except while an
+        # earlier exception is already propagating (the root cause must not
+        # be masked by a secondary failure)
+        try:
+            if body_ok:
+                stage_exc = None
+                try:
+                    stager.close()
+                except BaseException as exc:
+                    stage_exc = exc       # still join the drainer below
+                drainer.close()
+                if stage_exc is not None:
+                    raise stage_exc
+            else:
+                try:
+                    stager.close(abort=True)
+                except BaseException:
+                    logger.exception("stager failed during abort")
+                try:
+                    drainer.close()
+                except BaseException:
+                    logger.exception("drainer failed during abort")
+        except BaseException:
+            # consumer failure surfaced by the success-path close: still
+            # drop temp shards and the pool before propagating
+            spiller.cleanup()
+            if own_pool:
+                pool.shutdown()
+            raise
+        if not body_ok:
+            spiller.cleanup()          # drop temp spill shards on abort
+            if own_pool:               # don't leak worker processes either
+                pool.shutdown()
+    if stats is not None:
+        stats.update(t_acc)
+
+    if own_pool:
+        pool.shutdown()
+
+    if failures:
+        spiller.cleanup()
+        raise RuntimeError(f"{len(failures)} chunks failed twice: "
+                           f"{failures[:3]}")
+
+    n_written = spiller.finish()
+    logger.info("wrote %d records to %s", n_written, out_vcf)
+    return out_vcf

@@ -82,5 +82,6 @@ def test_cli_with_jax_checkpoint_matches_jax(reference, tmp_path):
     save_checkpoint(ckpt, params, state)
     out = str(tmp_path / "port.vcf")
     call.main(["--bam", ds.bams["illumina"], "--ref", ds.fasta, "--out", out,
-               "--model", "illumina", "--checkpoint", ckpt, "--device", "cpu"])
+               "--model", "illumina", "--checkpoint", ckpt, "--device", "cpu",
+               "--precision", "highest"])
     _assert_same_records(read_vcf(out), want)

@@ -106,7 +106,8 @@ def test_cli_two_bams_matches_jax(reference, tmp_path):
     save_checkpoint(ckpt, params, state)
     out = str(tmp_path / "port.vcf")
     call.main(["--bam", ",".join(_bams(ds)), "--ref", ds.fasta, "--out", out,
-               "--model", "hybrid", "--checkpoint", ckpt, "--device", "cpu"])
+               "--model", "hybrid", "--checkpoint", ckpt, "--device", "cpu",
+               "--precision", "highest"])
     _assert_same_records(read_vcf(out), want)
 
 

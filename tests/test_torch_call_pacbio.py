@@ -91,5 +91,5 @@ def test_cli_matches_jax(reference, tmp_path):
     flags = ["--include_hp"] if DATASETS[name][2] else []
     call.main(["--bam", ds.bams["pacbio"], "--ref", ds.fasta, "--out", out,
                "--model", name, "--checkpoint", ckpt, "--device", "cpu",
-               "--pacbio"] + flags)
+               "--pacbio", "--precision", "highest"] + flags)
     _assert_same_records(read_vcf(out), want)
