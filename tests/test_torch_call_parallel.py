@@ -295,3 +295,32 @@ def test_spawned_workers_cannot_see_the_card(monkeypatch):
             capture_output=True, text=True, check=True).stdout
     assert out.strip() == "''"
     assert os.environ["CUDA_VISIBLE_DEVICES"] == "0"
+
+
+def test_cli_hosts_share_the_genome(tmp_path):
+    """``--process_index i --process_count 2``: each host calls its share
+    of the chromosomes, and the two shares together are the one-host
+    calls."""
+    from hello_tpu_torch import sim
+    from hello_tpu_torch.nn import layers
+    from hello_tpu_torch.pipeline import call
+
+    ds = sim.make_dataset(str(tmp_path), ref_length=12000, num_variants=24,
+                          coverage=20, read_length=120, seed=17,
+                          num_chromosomes=2)
+    base = ["--bam", ds.bams["illumina"], "--ref", ds.fasta, "--device",
+            "cpu", "--precision", "highest"]
+    try:
+        call.main(base + ["--out", str(tmp_path / "all.vcf")])
+        for i in range(2):
+            call.main(base + ["--out", str(tmp_path / f"host{i}.vcf"),
+                              "--process_index", str(i),
+                              "--process_count", "2"])
+    finally:
+        layers.set_precision("highest")
+    whole = read_vcf(str(tmp_path / "all.vcf"))
+    shares = [read_vcf(str(tmp_path / f"host{i}.vcf")) for i in range(2)]
+    assert all(shares) and len({r.chromosome for r in whole}) == 2
+    assert sorted(map(key, shares[0] + shares[1])) == sorted(map(key, whole))
+    assert not {r.chromosome for r in shares[0]} & \
+        {r.chromosome for r in shares[1]}
