@@ -50,7 +50,25 @@ Phases, each printing one JSON line:
              at highest and at default on the card (each leg launching its
              own route only), and the phase reports the card's site flips,
              genotype flips and largest dQ of bf16 and of default against
-             highest, from the port's precision sweep compare().
+             highest, from the port's precision sweep compare();
+  train_path  dump -> train -> call: a simulated 400 kb Illumina genome at
+             30x with 1% substitution and 0.1% indel read errors, dumped with
+             the port's dump_region into shards of 80 sites; the first three
+             training steps of the full-width illumina model on the card and
+             on the CPU from the same initial parameters on the same batches
+             (losses within rtol 1e-4), a torch.profiler sample of two card
+             steps; train_from_shards on the card for 6 epochs (coded wire
+             and overlapped uploads, the card's defaults; steps/s and
+             training sites/s after the first epoch); its .final.ckpt loaded
+             with load_scorer and the genome called at highest (tf32x3
+             launches > 0, no other route), held to the CPU's call with the
+             same checkpoint as main_path is, and evaluated against the
+             truth (1 - p may differ by the device decode's resolution,
+             2^-16, where confident logits swamp it; the phase counts those
+             records); the F1 check: the trained weights swapped into a used
+             seed-0 scorer give the trained scorer's logits within rtol 1e-4
+             / atol 1e-4, and on the 80 held-out sites those logits equal
+             the CPU's within the same.
 
 Then a ``kernels`` line (every route of the kernel with its launches on
 each path, error, times and bound), the nvidia-smi line, and as the last line
@@ -89,6 +107,14 @@ PARALLEL_GENOME_BP = 600_000
 PARALLEL_WORKERS = 4
 PARALLEL_CHUNK = 100_000
 COVERAGE = 30
+TRAIN_GENOME_BP = 400_000
+TRAIN_SITES_PER_SHARD = 80
+TRAIN_EPOCHS = 6
+TRAIN_SUB_ERRORS = 0.01          # per-base sequencing errors of the reads
+TRAIN_INDEL_ERRORS = 0.001       # that train_path trains on
+# the device decode's resolution of 1 - p at sites of up to four alleles:
+# two ulps of a log-probability sum down to 4 x -23.03 (compare_records)
+DECODE_RESOLUTION = 2.0 ** -16
 KERNEL_ALLELES = 2049
 KERNEL_READS = 32
 KERNEL_OCCUPANCY = 0.6
@@ -336,9 +362,18 @@ def call_on_cpu(model_name, scorer, bams, fasta, out_cpu):
     return read_vcf(out_cpu), time.perf_counter() - t0
 
 
-def compare_records(card, cpu):
+def compare_records(card, cpu, decode_steps=None):
     """Raise unless the card's records equal the CPU's; returns (largest
-    |qual difference|, qual there)."""
+    |qual difference|, qual there).
+
+    With ``decode_steps`` (a list) 1 - p may also differ by the device
+    decode's resolution, DECODE_RESOLUTION: the decode forms a pair's
+    log-probability in fp32 from the site's sum of log(1 - sigmoid(x) +
+    1e-10), each term down to -23.03 for a confident logit, so 1 - p moves
+    in steps of that sum's ulp (2^-20 for one allele at logits of 8 to 16,
+    2^-18 for a sum of -32 to -64; tests/test_torch_decode_quantization.py)
+    and two correct fp32 runs can land a few steps apart.  Each such
+    record's |delta (1 - p)| is appended to the list."""
     if not card:
         raise AssertionError("the card's VCF is empty")
     if len(cpu) != len(card):
@@ -353,7 +388,10 @@ def compare_records(card, cpu):
         # ~0.003, so qual is held to 1e-3 relative (+1e-3 absolute), as
         # hello_tpu's tests hold two scoring routes to each other
         if abs(a.qual - b.qual) > 1e-3 + 1e-3 * abs(b.qual):
-            raise AssertionError(f"qual differs: card {a} cpu {b}")
+            step = abs(10 ** (-a.qual / 10) - 10 ** (-b.qual / 10))
+            if decode_steps is None or step > DECODE_RESOLUTION:
+                raise AssertionError(f"qual differs: card {a} cpu {b}")
+            decode_steps.append(step)
         worst = max(worst, (abs(a.qual - b.qual), b.qual))
     return worst
 
@@ -591,6 +629,203 @@ def parallel_path_phase(workdir):
     return launches
 
 
+def _swap_check(trained, sites):
+    """F1 on the card: the trained weights swapped into a used seed-0 scorer
+    give the trained scorer's logits (within the kernel's tolerance), not the
+    stale fold's; and the trained scorer's logits equal the CPU's.  ``sites``
+    are featurized (the coded wire carries featurizer values only)."""
+    import numpy as np
+
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.pipeline.batching import pack_sites
+    from hello_tpu_torch.pipeline.call import Scorer, load_scorer
+
+    batch = pack_sites(sites, hybrid=False)
+    used = load_scorer("illumina", seed=0)
+    before, _ = used(batch)
+    want, _ = trained(batch)
+    used.model.load_state_dict(trained.model.state_dict())
+    got, _ = used(batch)
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-4) or \
+            np.allclose(before, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"swapped weights: logits {err} from the new "
+                             "weights' (rtol 1e-4, atol 1e-4), or the old "
+                             "weights already gave them")
+    # the trained logits themselves, card against CPU
+    cpu_model = create_model("illumina")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               trained.model.state_dict().items()})
+    cpu, _ = Scorer(cpu_model, device="cpu")(batch)
+    if not np.allclose(want, cpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError("trained logits: card against CPU "
+                             f"{float(np.abs(want - cpu).max())}")
+    return {"max_abs_logit_diff": err, "rtol": 1e-4, "atol": 1e-4,
+            "max_abs_diff_before_swap": float(np.abs(before - want).max()),
+            "trained_logits_card_vs_cpu_max_abs": float(
+                np.abs(want - cpu).max()),
+            "trained_logits_max_abs": float(np.abs(cpu).max())}
+
+
+def _step_profile(trainer, batches):
+    """torch.profiler over train steps on the card: wall seconds, the summed
+    device time of their kernels (busy share = device / wall, kernels do not
+    overlap on one stream) and the five kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"steps": len(batches), "wall_seconds": wall,
+            "device_seconds": device if device > 0 else "not measured",
+            "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3,
+                             e.count) for e in top]}
+
+
+def train_path_phase(workdir):
+    """Dump -> train -> call on the card: a simulated Illumina genome dumped
+    with the port's dump_region, the full-width illumina model trained with
+    train_from_shards on the card (wire and overlap on, the defaults there),
+    its .final.ckpt loaded with load_scorer and the genome called through
+    read_conv_reduce; the first steps' losses, the records and the F1 swap
+    held against the CPU.  Returns the tf32x3 launches of the calling and
+    of the training's validation passes."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch import sim, telemetry
+    from hello_tpu_torch.io.fasta import FastaFile
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
+    from hello_tpu_torch.pipeline.dump import dump_region
+    from hello_tpu_torch.pipeline.evaluate import evaluate
+    from hello_tpu_torch.train.cli import train_from_shards
+    from hello_tpu_torch.train.loader import SiteDataset, device_batches
+    from hello_tpu_torch.train.store import open_shard
+    from hello_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    set_precision("highest")                    # hello_tpu trains at highest
+    t0 = time.perf_counter()
+    ds = sim.make_dataset(workdir, ref_length=TRAIN_GENOME_BP,
+                          num_variants=TRAIN_GENOME_BP // 1000,
+                          coverage=COVERAGE, read_length=150, seed=13,
+                          sub_error_rate=TRAIN_SUB_ERRORS,
+                          indel_error_rate=TRAIN_INDEL_ERRORS)
+    sim_s = time.perf_counter() - t0
+    bam = [ds.bams["illumina"]]
+    bed = os.path.join(workdir, "conf.bed")
+    with open(bed, "w") as fh:
+        fh.write(f"{ds.chromosome}\t0\t{TRAIN_GENOME_BP}\n")
+    t0 = time.perf_counter()
+    shards = dump_region(bam, FastaFile(ds.fasta), ds.chromosome, 0,
+                         TRAIN_GENOME_BP, ds.truth_vcf, bed,
+                         os.path.join(workdir, "dump"),
+                         sites_per_shard=TRAIN_SITES_PER_SHARD)
+    dump_s = time.perf_counter() - t0
+    sites = [len(open_shard(p)) for p in shards]
+    if len(shards) < 2:
+        raise AssertionError(f"the dump wrote {len(shards)} shards")
+
+    # the first steps, on the card and on the CPU: the same initial
+    # parameters (the trainer's seeded init) on the same epoch-0 batches
+    # that train_from_shards takes (shard 0 is its validation split)
+    fixed = {"read_bucket": 64, "allele_bucket": 64, "site_bucket": 32}
+    first = list(zip(range(3), device_batches(
+        SiteDataset(shards[1:], 1000, shuffle=True, seed=13), False, 1, 64,
+        fixed_shape=fixed, wire=True)))
+    losses, step_s = {}, []
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(create_model("illumina"),
+                          TrainConfig(lr=1e-3, binary=True), device=device)
+        losses[device] = []
+        for _, batch in first:
+            t0 = time.perf_counter()
+            losses[device].append(trainer.train_batch(batch)["loss"])
+            if device == "cuda":             # the loss read waits for the step
+                step_s.append(time.perf_counter() - t0)
+        if device == "cuda":
+            profile = _step_profile(trainer, [b for _, b in first[1:]])
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0):
+        raise AssertionError(f"first losses: card {losses['cuda']}, CPU "
+                             f"{losses['cpu']} (rtol 1e-4)")
+
+    prefix = os.path.join(workdir, "model")
+    rc.reset_launches()              # validation runs the eval forward
+    t0 = time.perf_counter()
+    trainer = train_from_shards(shards, "illumina", prefix,
+                                num_epochs=TRAIN_EPOCHS, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    eval_launches = dict(rc.read_conv_reduce.launches_by_route)
+    with open(prefix + ".metrics.jsonl") as fh:
+        epochs = [json.loads(line) for line in fh]
+    if (trainer.step != sum(e["batches"] for e in epochs)
+            or not all(np.isfinite(e["train_loss"]) for e in epochs)):
+        raise AssertionError(f"training metrics: {epochs}")
+    later = epochs[1:]                          # past cuDNN's first calls
+    steps, seconds = sum(e["batches"] for e in later), sum(
+        e["seconds"] for e in later)
+
+    scorer = load_scorer("illumina", prefix + ".final.ckpt")   # cuda
+    out_card = os.path.join(workdir, "card.vcf")
+    stats = {}
+    telemetry.reset()
+    rc.reset_launches()
+    t0 = time.perf_counter()
+    call_genome(bam, ds.fasta, scorer, out_card, stats=stats)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    by_route = dict(rc.read_conv_reduce.launches_by_route)
+    if by_route["tf32x3"] <= 0 or sum(by_route.values()) != by_route["tf32x3"]:
+        raise AssertionError(f"train_path's call launched {by_route}: only "
+                             "route tf32x3, at least once")
+    card = read_vcf(out_card)
+    cpu, cpu_s = call_on_cpu("illumina", scorer, bam, ds.fasta,
+                             os.path.join(workdir, "cpu.vcf"))
+    decode_steps = []
+    worst = compare_records(card, cpu, decode_steps=decode_steps)
+    swap = _swap_check(scorer, list(open_shard(shards[0])))
+    emit({"phase": "train_path", "model": "illumina",
+          "genome_bp": TRAIN_GENOME_BP, "coverage": COVERAGE,
+          "sub_error_rate": TRAIN_SUB_ERRORS,
+          "indel_error_rate": TRAIN_INDEL_ERRORS,
+          "sim_seconds": sim_s, "dump_seconds": dump_s, "shards": len(shards),
+          "sites_per_shard": sites, "epochs": TRAIN_EPOCHS,
+          "steps": trainer.step, "train_seconds": train_s,
+          "epoch_metrics": epochs,
+          "steps_per_s_after_epoch0": steps / seconds,
+          "train_sites_per_s_after_epoch0":
+              sum(sites[1:]) * len(later) / seconds,
+          "first_losses": losses, "first_losses_rtol": 1e-4,
+          "first_step_seconds_card": step_s, "step_profile": profile,
+          "eval_launches_by_route": eval_launches,
+          "sites": stats["sites"], "records": len(card), "seconds": card_s,
+          "windows_per_s": stats["sites"] / card_s,
+          "read_conv_reduce_launches_by_route": by_route,
+          "stages": telemetry.report(), "cpu_seconds": cpu_s,
+          "records_equal": True, "max_qual_diff": worst[0],
+          "qual_at_max_diff": worst[1],
+          "quals_within_one_decode_step": len(decode_steps),
+          "max_one_minus_p_diff": max(decode_steps, default=0.0),
+          "evaluate_vs_truth": evaluate(out_card, ds.truth_vcf,
+                                        ds.fasta)["all"],
+          "f1_swap": swap})
+    return by_route["tf32x3"], eval_launches["tf32x3"]
+
+
 def main():
     import torch
 
@@ -613,9 +848,13 @@ def main():
         launches = main_path_phase(os.path.join(workdir, "illumina"))
         hybrid = hybrid_path_phase(os.path.join(workdir, "hybrid"))
         parallel = parallel_path_phase(os.path.join(workdir, "parallel"))
+        trained, validation = train_path_phase(
+            os.path.join(workdir, "train"))
     by_path = {
         "tf32x3": {"main_path": launches, "hybrid_path": hybrid,
-                   "parallel_path_highest": parallel["tf32x3"]},
+                   "parallel_path_highest": parallel["tf32x3"],
+                   "train_path": trained,
+                   "train_path_validation": validation},
         "tf32": {"parallel_path_default": parallel["tf32"]},
         "bf16": {"parallel_path": parallel["bf16"]},
     }

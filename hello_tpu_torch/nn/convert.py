@@ -7,9 +7,11 @@ model tree does — the same keys and layouts hello_tpu's nn/export.py
 ``export_state_dict`` writes — and the port's module tree uses exactly those
 keys, so ``model.load_state_dict(sd, strict=True)`` is the bridge.
 
-Also here: the seeded init (``init_params``) and loading of hello_tpu pytree
-checkpoints, which are plain numpy pickles with ``{"params", "state"}`` keys
-(hello_tpu train/checkpoint.py), read without JAX.
+``jax_params_from_state_dict`` is the inverse, so checkpoints written by
+either package load in the other.  Also here: the seeded init
+(``init_params``) and loading of hello_tpu pytree checkpoints, which are
+plain numpy pickles with ``{"params", "state"}`` keys (hello_tpu
+train/checkpoint.py), read without JAX.
 """
 
 from __future__ import annotations
@@ -98,6 +100,71 @@ def state_dict_from_jax(model, params, state) -> Dict[str, torch.Tensor]:
                                f"{_TORCH_ATTR[name]}.network.", out)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def _np_of(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _import_layer(layer, sd, prefix: str):
+    """The hello_tpu params of one layer from the state dict ``sd`` (the
+    inverse of ``_export_layer``)."""
+    if isinstance(layer, (L.WeightNormedConv1d, L.WeightNormedLinear)):
+        conv = isinstance(layer, L.WeightNormedConv1d)
+        p = prefix + ("conv1d." if conv else "linear.")
+        v = _np_of(sd[p + "weight_v"])
+        out = {"v": v.transpose(2, 1, 0) if conv else v.transpose(1, 0),
+               "g": _np_of(sd[p + "weight_g"]).reshape(-1)}
+        if p + "bias" in sd:
+            out["b"] = _np_of(sd[p + "bias"])
+        return out
+    if isinstance(layer, (L.Conv1d, L.Linear)):
+        w = _np_of(sd[prefix + "weight"])
+        out = {"w": w.transpose(2, 1, 0) if w.ndim == 3 else w.transpose(1, 0)}
+        if prefix + "bias" in sd:
+            out["b"] = _np_of(sd[prefix + "bias"])
+        return out
+    if isinstance(layer, L.ResidualBlock):
+        return {"ff": _import_sequential(layer.ffNetwork, sd,
+                                         prefix + "ffNetwork.network."),
+                "sh": _import_sequential(layer.shNetwork, sd,
+                                         prefix + "shNetwork.network.")}
+    if isinstance(layer, L.Fork):
+        out = {}
+        for i in range(layer.num_nets):
+            p = _import_sequential(getattr(layer, f"net{i}"), sd,
+                                   prefix + f"net{i}.network.")
+            if p:
+                out[f"net{i}"] = p
+        return out
+    if any(True for _ in layer.parameters()):
+        raise NotImplementedError(
+            f"no weight bridge for layer type {type(layer).__name__} at "
+            f"{prefix!r} (it owns parameters)")
+    return {}
+
+
+def _import_sequential(seq: L.Sequential, sd, prefix):
+    out = {}
+    for i, layer in enumerate(seq.network):
+        p = _import_layer(layer, sd, f"{prefix}{i}.")
+        if p:                       # hello_tpu keeps only non-empty entries
+            out[str(i)] = p
+    return out
+
+
+def jax_params_from_state_dict(model, sd=None):
+    """The inverse of ``state_dict_from_jax``: the model's state dict
+    (default: its own) -> hello_tpu's ``(params, state)`` pytrees of float32
+    numpy arrays, with the keys, nesting and layouts its ``model.init``
+    gives (HIO conv weights, ``[in, out]`` linear weights, weight-norm ``g``
+    per output channel).  ``state`` is empty: the ported layers keep no
+    batch-norm statistics."""
+    sd = model.state_dict() if sd is None else sd
+    params = {name: _import_sequential(net, sd,
+                                       f"{_TORCH_ATTR[name]}.network.")
+              for name, net in model.networks().items()}
+    return params, {}
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts variant-scoring model in torch (eval mode).
+"""Mixture-of-Experts variant-scoring model in torch.
 
 The port of hello_tpu's nn/moe.py over the same fixed-shape padded batches:
 
@@ -8,7 +8,7 @@ The port of hello_tpu's nn/moe.py over the same fixed-shape padded batches:
   * ``site_ids`` ``[A]``, ``allele_mask`` ``[A]``, ``ref_segments``
     ``[S, L, 5]`` (S = number of padded sites).
 
-Both read layouts reduce per allele through ONE op,
+In eval mode both read layouts reduce per allele through ONE op,
 ``ops.read_conv.read_conv_reduce``: the hand-written CUDA kernel for CUDA
 tensors, its plain PyTorch version for CPU tensors, in the kernel route of
 the precision in force (nn/layers.set_precision).  At ``bf16`` dtypes flow
@@ -32,6 +32,10 @@ Model variants, selected by which networks the config holds:
 Hybrid batches add ``reads1`` / ``read_mask1`` (dense) or ``rows1`` /
 ``row_allele1`` / ``row_valid1`` (packed); read_conv1 reduces them through
 the same kernel with its own folded weights.
+
+In train mode (``model.train()``) the read convolvers run through their
+layer modules under autograd instead, as hello_tpu's train-mode forward
+takes its layers and never its Pallas kernel; the kernel has no backward.
 """
 
 from __future__ import annotations
@@ -85,7 +89,7 @@ def make_site_onehot(site_ids, allele_mask, num_sites):
 
 
 class MoEAttention(nn.Module):
-    """MoE model (eval mode); networks live under the reference's attribute
+    """MoE model; networks live under the reference's attribute
     names (``read_convolver0``, ``compressor0``, ``xattn0``, ...)."""
 
     NETWORK_NAMES = (
@@ -139,9 +143,33 @@ class MoEAttention(nn.Module):
         logits = None if xattn is None else xattn((ca, (expand0, expand1)))
         return logits, (cs0, cs1), ca
 
+    @property
+    def has_meta(self) -> bool:
+        return self.net("meta") is not None
+
+    def _read_reduce_layers(self, batch, k):
+        """Train mode: platform k's reads through the read convolver's layer
+        modules under autograd (cuDNN on the card), then the masked
+        per-allele sum, as hello_tpu's train-mode forward does; packed rows
+        or the dense ``A*R`` grid."""
+        conv = self.net(f"read_conv{k}")
+        if f"rows{k}" in batch:
+            A = batch[f"read_mask{k}"].shape[0]
+            row_valid = batch[f"row_valid{k}"].float()
+            frames = conv(batch[f"rows{k}"].float())
+            return packed_read_reduce(frames, batch[f"row_allele{k}"],
+                                      row_valid, A)
+        reads = batch[f"reads{k}"]
+        A, R = reads.shape[:2]
+        frames = conv(reads.reshape((A * R,) + tuple(reads.shape[2:])).float())
+        frames = frames.reshape((A, R) + tuple(frames.shape[1:]))
+        return masked_read_sum(frames, batch[f"read_mask{k}"].float())
+
     def _read_reduce(self, batch, k, folded):
         """Platform k's reads -> per-allele sum of read-convolver frames
         [A, 36, 64], packed rows or the dense grid flattened to rows."""
+        if self.training:
+            return self._read_reduce_layers(batch, k)
         if f"rows{k}" in batch:
             A = batch[f"read_mask{k}"].shape[0]
             rows = batch[f"rows{k}"]
@@ -159,19 +187,25 @@ class MoEAttention(nn.Module):
                                 folded[f"read_conv{k}"], A)
 
     def forward(self, batch, folded=None):
-        """Eval-mode forward -> {"experts": [A, E] raw logits, "meta": [S, 3]
-        softmax weights or None}; E is 1 (single-tech, hybrid no-ensemble) or
-        3 (experts 0, 1, 2; zeros for expert 2 when the config has none).
+        """Forward -> {"experts": [A, E] raw logits, "meta": [S, 3] softmax
+        weights or None}; E is 1 (single-tech, hybrid no-ensemble) or 3
+        (experts 0, 1, 2; zeros for expert 2 when the config has none).
 
-        ``folded``: ``fold_read_convs()`` output (computed here when None)."""
-        if folded is None:
-            folded = self.fold_read_convs()
-        route = route_for_precision(L.PRECISION)
-        stale = {n: f.route for n, f in folded.items() if f.route != route}
-        if stale:
-            raise ValueError(f"read convolvers folded for routes {stale}, "
-                             f"but the precision {L.PRECISION!r} runs route "
-                             f"{route!r}: fold again after set_precision")
+        Eval mode reduces the reads through ``read_conv_reduce`` with the
+        folded weights (``folded``: ``fold_read_convs()`` output, computed
+        here when None); train mode runs the read convolvers' layers under
+        autograd and ignores ``folded``.  The ported configs hold no
+        BatchNorm and no Dropout, so both modes compute the same function."""
+        if not self.training:
+            if folded is None:
+                folded = self.fold_read_convs()
+            route = route_for_precision(L.PRECISION)
+            stale = {n: f.route for n, f in folded.items() if f.route != route}
+            if stale:
+                raise ValueError(f"read convolvers folded for routes {stale}, "
+                                 f"but the precision {L.PRECISION!r} runs "
+                                 f"route {route!r}: fold again after "
+                                 "set_precision")
         S = batch["ref_segments"].shape[0]
         site_ids = batch["site_ids"].long()
         site_onehot = make_site_onehot(site_ids, batch["allele_mask"], S)

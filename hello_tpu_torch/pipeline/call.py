@@ -77,7 +77,10 @@ class Scorer:
     ``A*R`` grid) and ``device_decode`` (decode genotypes on the device and
     fetch 13 bytes per site) default to on for CUDA, as hello_tpu defaults
     them on for accelerators; ``compact`` and ``packed_conv`` default to off
-    on the CPU.  The read-convolver weights are folded once here."""
+    on the CPU.  The read-convolver weights are folded for the kernel here,
+    and folded again at the next dispatch whenever a read-convolver
+    parameter is replaced or changed in place (``load_state_dict``, an
+    optimiser step), so a swap of weights never runs a stale fold."""
 
     # consumes pre-coded WireBatch inputs (pack_sites_wire) directly
     accepts_wire = True
@@ -91,13 +94,35 @@ class Scorer:
                  device_decode: bool = True):
         self.device = resolve_device(device)
         self.precision = nn_layers.PRECISION
+        # cuBLAS's and cuDNN's TF32 switches as the precision in force wants
+        # them (torch's own default lets cuDNN take TF32 even at highest)
+        nn_layers.set_precision(self.precision)
         self.model = model.to(self.device).eval()
         on_card = self.device.type == "cuda"
         self.compact = on_card if compact is None else compact
         self.packed_conv = on_card if packed_conv is None else packed_conv
         self.device_decode = device_decode
+        self._folded_from = None
+        self._fold()
+
+    def _read_conv_params(self):
+        return [p for name in ("read_conv0", "read_conv1")
+                if self.model.net(name) is not None
+                for p in self.model.net(name).parameters()]
+
+    def _fold(self):
+        """Fold the read convolvers for the kernel when their parameters
+        are not those (same objects, same in-place versions) of the last
+        fold."""
+        params = self._read_conv_params()
+        last = self._folded_from
+        if (last is not None and len(last) == len(params)
+                and all(p is q and v == q._version
+                        for (p, v), q in zip(last, params))):
+            return
         with torch.no_grad():
             self.folded = self.model.fold_read_convs()
+        self._folded_from = [(p, p._version) for p in params]
 
     def _upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """numpy wire/dense dict -> tensors on the device, through pinned
@@ -118,6 +143,7 @@ class Scorer:
         else:
             from .compact import expand_compact
             batch = expand_compact(d)          # no-op for dense batches
+        self._fold()
         out = self.model(batch, folded=self.folded)
         if decode:
             from ..nn.genotype import decode_pairs_device

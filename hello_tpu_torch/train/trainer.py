@@ -1,0 +1,389 @@
+"""One-device trainer: the train-mode forward under autograd, the losses of
+train/loss.py and optax's update rules, written out.
+
+The port of hello_tpu's train/trainer.py on one device.  hello_tpu runs one
+jitted step over a ``data`` mesh; here a step is the model's train-mode
+forward (the read convolvers through their layer modules, cuDNN on the card),
+``torch.autograd.grad`` and ``Optimizer.update``, all dispatched without a
+host wait unless the caller asks for the loss.  Batches enter stacked with a
+leading device axis of size 1, as ``train/loader.device_batches`` stacks
+them; dense or coded-wire (expanded on the device, labels carried through).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import pickle
+from typing import Dict, Iterable, List, Tuple
+
+import numpy as np
+import torch
+import torch.utils.checkpoint
+
+from ..nn import layers as L
+from ..nn.convert import init_params, jax_params_from_state_dict, state_dict_from_jax
+from ..nn.moe import MoEAttention
+from ..pipeline.call import resolve_device
+from . import loss as losses
+from .checkpoint import load_full_checkpoint, save_checkpoint
+from .schedule import cosine_warm_restarts, entropy_decay, sine_warmup_restarts
+
+logger = logging.getLogger(__name__)
+
+#: ROADMAP item named by what the one-device trainer does not do
+ROADMAP_DATA_PARALLEL = "ROADMAP.md Queue 1 item 11b (data-parallel training)"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 1e-3
+    min_lr: float = 0.0
+    optimizer: str = "Adam"          # Adam | SGD | SGDR (SGD + cosine restarts)
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    t0: int = 10
+    t_mult: int = 2
+    warmup: bool = False
+    steps_per_epoch: int = 1
+    entropy_regularizer: float = 0.1
+    entropy_decay: float = 0.5
+    smoothing: float = 0.0
+    aux_weight: float = 0.0
+    class_weights: Tuple[float, float] = (1.0, 1.0)
+    binary: bool = False             # BCE loss for no-ensemble models
+    grad_clip_norm: float = 10.0     # 0 disables global-norm clipping
+    # recompute the forward in the backward pass instead of keeping its
+    # activations (torch.utils.checkpoint at the whole-loss boundary)
+    remat: bool = False
+
+
+def make_schedule(config: TrainConfig):
+    """The learning rate as a function of the update count (SGDR, sine
+    warmup, or constant)."""
+    if config.optimizer == "SGDR":
+        return cosine_warm_restarts(config.lr, config.t0, config.t_mult,
+                                    config.min_lr, config.steps_per_epoch)
+    if config.warmup:
+        return sine_warmup_restarts(config.lr, config.t0, config.t_mult,
+                                    config.min_lr, config.steps_per_epoch)
+    return lambda count: config.lr
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as jnp computes optax's scalars."""
+    return float(np.float32(x))
+
+
+class Optimizer:
+    """optax's ``make_optimizer`` chain over a list of parameters.
+
+    * ``clip_by_global_norm(max_norm)`` first: ``g`` when ``||g|| <
+      max_norm``, else ``g / ||g|| * max_norm`` (no epsilon);
+    * ``Adam``: ``adamw`` — ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2
+      + b2 nu``, bias-corrected at the incremented count, ``mu_hat /
+      (sqrt(nu_hat) + eps)`` with eps outside the root, plus ``wd * p`` on
+      every parameter (biases included), times ``-lr``;
+    * ``SGD`` / ``SGDR``: ``g + wd * p``, then the momentum trace ``t = g +
+      m t`` (starting at zero), times ``-lr``;
+    * the learning rate is the schedule at the update count before its
+      increment, so the first update uses ``schedule(0)``.
+
+    Every update is foreach arithmetic on the parameters' device, with no
+    host wait."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, config: TrainConfig, params: List[torch.Tensor]):
+        self.config = config
+        self.params = params
+        self.kind = "adamw" if config.optimizer == "Adam" else "sgd"
+        self.schedule = make_schedule(config)
+        self.count = 0
+        zeros = lambda: [torch.zeros_like(p) for p in params]
+        self.slots = ({"mu": zeros(), "nu": zeros()} if self.kind == "adamw"
+                      else {"trace": zeros()})
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor]):
+        cfg, params = self.config, self.params
+        g = list(grads)
+        if cfg.grad_clip_norm and cfg.grad_clip_norm > 0:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            keep = norm < cfg.grad_clip_norm
+            # (g / denom) * mult is g itself below the norm, else optax's
+            # (g / norm) * max_norm
+            g = torch._foreach_div(g, torch.where(keep, 1.0, norm))
+            torch._foreach_mul_(g, torch.where(keep, 1.0, float(cfg.grad_clip_norm)))
+        lr = _f32(self.schedule(self.count))
+        if self.kind == "adamw":
+            mu, nu = self.slots["mu"], self.slots["nu"]
+            torch._foreach_mul_(mu, self.B1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.B1))
+            sq = torch._foreach_mul(g, g)
+            torch._foreach_mul_(sq, 1 - self.B2)
+            torch._foreach_mul_(nu, self.B2)
+            torch._foreach_add_(nu, sq)
+            count = self.count + 1
+            bc1 = _f32(1 - np.float32(self.B1) ** np.float32(count))
+            bc2 = _f32(1 - np.float32(self.B2) ** np.float32(count))
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.EPS)
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, den)
+            torch._foreach_add_(upd, torch._foreach_mul(params, cfg.weight_decay))
+        else:
+            g = torch._foreach_add(g, torch._foreach_mul(params, cfg.weight_decay))
+            upd = self.slots["trace"]
+            torch._foreach_mul_(upd, cfg.momentum)
+            torch._foreach_add_(upd, g)
+        torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
+        self.count += 1
+
+    def state_dict(self, names: List[str]) -> dict:
+        """Plain dict of numpy arrays keyed by parameter name (no torch
+        object, so the checkpoint pickle stays framework-neutral)."""
+        out = {"kind": self.kind, "count": self.count}
+        for slot, ts in self.slots.items():
+            out[slot] = {n: t.detach().cpu().numpy() for n, t in zip(names, ts)}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, names: List[str]):
+        if not (isinstance(state, dict) and state.get("kind") == self.kind):
+            raise ValueError(
+                "the checkpoint's optimizer state was not written by this "
+                f"package's {self.kind!r} optimizer (a hello_tpu checkpoint "
+                "carries optax state): load its params with load_scorer, or "
+                "train from them without resuming")
+        for slot, ts in self.slots.items():
+            for n, t in zip(names, ts):
+                t.copy_(torch.from_numpy(np.asarray(state[slot][n])))
+        self.count = int(state["count"])
+
+
+def _ensure_dense(batch):
+    """Expand coded-wire training batches (pipeline/compact.py) on the
+    device, carrying the labels through; a no-op for dense batches."""
+    if "codes0" not in batch and "packed0" not in batch:
+        return batch
+    from ..pipeline.compact import expand_compact
+    dense = dict(expand_compact({k: v for k, v in batch.items()
+                                 if k != "labels"}))
+    if "labels" in batch:
+        dense["labels"] = batch["labels"]
+    return dense
+
+
+def _batch_loss(model: MoEAttention, config: TrainConfig, batch, reg_coeff):
+    """(total loss, per-expert loss) of one batch: the binary loss for a
+    model with no meta-expert (or ``binary``), the MoE loss otherwise."""
+    batch = _ensure_dense(batch)
+    out = model(batch)
+    experts = out["experts"]
+    if out["meta"] is None or config.binary:
+        total = losses.binary_loss(experts, batch["labels"],
+                                   batch["allele_mask"])
+        return total, torch.zeros((1,), dtype=torch.float32,
+                                  device=experts.device)
+    total, per_expert, _post = losses.moe_loss(
+        experts, out["meta"], batch["labels"], batch["site_ids"],
+        batch["allele_mask"], regularizer=reg_coeff,
+        smoothing=config.smoothing, aux_weight=config.aux_weight,
+        class_weights=config.class_weights, train=True)
+    return total, per_expert
+
+
+def _to_numpy(tree):
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in tree.items()}
+
+
+class Trainer:
+    """One-device trainer with hello_tpu's interface.
+
+    ``device_batches`` are dicts with a leading axis of size 1 (numpy, or
+    tensors staged by ``stage_batches``).  ``params`` optionally gives the
+    initial weights as a state dict; otherwise they are the seeded init of
+    nn/convert.init_params.  Training runs at the precision in force
+    (nn/layers.PRECISION; hello_tpu trains at ``highest``), whose cuBLAS and
+    cuDNN TF32 switches are applied here."""
+
+    def __init__(self, model: MoEAttention, config: TrainConfig, device=None,
+                 params=None, seed: int = 13):
+        self.device = resolve_device(device)
+        L.set_precision(L.PRECISION)
+        if params is None:
+            init_params(model, torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(params, strict=True)
+        self.model = model.to(self.device).train()
+        self.config = config
+        named = list(self.model.named_parameters())
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.opt = Optimizer(config, self.params)
+        self.step = 0
+        self.resume_extra = {}
+        self._reg = entropy_decay(config.entropy_regularizer,
+                                  config.entropy_decay)
+        self._stage_stream = None
+
+    # -- batches ------------------------------------------------------------
+
+    def stage_batches(self, device_batches):
+        """Blocking host-to-device staging of a stacked batch: pinned host
+        buffers and copies on a side stream, waited for here.  Called from
+        the prefetch thread (train/cli.prefetch_iter), so the upload of the
+        next batch overlaps the step in flight."""
+        if self.device.type != "cuda":
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in device_batches.items()}
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stage_stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                   .to(self.device, non_blocking=True)
+                   for k, v in device_batches.items()}
+        self._stage_stream.synchronize()
+        return out
+
+    def _device_batch(self, device_batches):
+        """The one device's batch: index 0 of the stacked axis, on the
+        device."""
+        out = {}
+        for k, v in device_batches.items():
+            if isinstance(v, torch.Tensor):
+                if v.device.type == "cuda":
+                    # staged on the side stream: keep its memory from being
+                    # reused before this step's kernels have read it
+                    v.record_stream(torch.cuda.current_stream(v.device))
+                out[k] = v[0]
+            else:
+                t = torch.from_numpy(np.ascontiguousarray(v[0]))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
+        return out
+
+    # -- steps ----------------------------------------------------------------
+
+    def _loss_and_grads(self, batch, reg):
+        if self.config.remat:
+            total, per_expert = torch.utils.checkpoint.checkpoint(
+                _batch_loss, self.model, self.config, batch, reg,
+                use_reentrant=False)
+        else:
+            total, per_expert = _batch_loss(self.model, self.config, batch, reg)
+        grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        return total.detach(), per_expert.detach(), grads
+
+    def compute_grads(self, device_batches):
+        """Loss and gradients ({state-dict name: tensor}) without an
+        optimizer update."""
+        total, _, grads = self._loss_and_grads(
+            self._device_batch(device_batches), self._reg(self.step))
+        return float(total), dict(zip(self.param_names, grads))
+
+    def train_batch(self, device_batches, crash_dump_prefix: str = None,
+                    sync: bool = True) -> Dict[str, float]:
+        """One optimisation step.
+
+        With ``sync`` the loss is read before the update; a non-finite loss
+        dumps the parameters and optimizer state before the step and the
+        batch (``<prefix>.step<n>.err.ckpt`` / ``.payload.pkl``) and raises.
+        ``sync=False`` waits for nothing: it returns the loss on the device,
+        and on the card pinned host copies of it with the event that marks
+        them written (read them with ``read_metrics``); the caller owns the
+        finite check."""
+        total, per_expert, grads = self._loss_and_grads(
+            self._device_batch(device_batches), self._reg(self.step))
+        if sync:
+            loss = float(total)
+            if not math.isfinite(loss):
+                self.step += 1
+                prefix = crash_dump_prefix or "hello_tpu_torch_crash"
+                self.save(f"{prefix}.step{self.step}.err.ckpt")
+                with open(f"{prefix}.step{self.step}.payload.pkl", "wb") as fh:
+                    pickle.dump(_to_numpy(device_batches), fh)
+                raise FloatingPointError(
+                    f"non-finite training loss at step {self.step}; params "
+                    f"and payload dumped to {prefix}.step{self.step}.*")
+        self.opt.update(grads)
+        self.step += 1
+        if sync:
+            return {"loss": loss, "per_expert": per_expert.cpu().tolist()}
+        out = {"loss_device": total, "per_expert_device": per_expert}
+        if total.device.type == "cuda":
+            host = torch.empty(1 + per_expert.numel(), pin_memory=True)
+            host.copy_(torch.cat([total.reshape(1), per_expert]),
+                       non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            out.update(host=host, event=event)
+        return out
+
+    @staticmethod
+    def read_metrics(m) -> Tuple[float, list]:
+        """(loss, per-expert loss) of a ``train_batch(sync=False)`` result,
+        waiting only for that step."""
+        if "event" in m:
+            m["event"].synchronize()
+            vals = m["host"].tolist()
+            return vals[0], vals[1:]
+        return float(m["loss_device"]), m["per_expert_device"].cpu().tolist()
+
+    def evaluate(self, batches: Iterable[dict]) -> float:
+        """Mean validation loss over single-device batches (numpy dicts),
+        through the eval forward: the read convolvers in
+        ``read_conv_reduce`` with this step's folded weights."""
+        total, count = 0.0, 0
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                folded = self.model.fold_read_convs()
+                for batch in batches:
+                    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                             .to(self.device) for k, v in batch.items()}
+                    batch = _ensure_dense(batch)
+                    out = self.model(batch, folded=folded)
+                    if out["meta"] is None:
+                        val = losses.binary_loss(out["experts"], batch["labels"],
+                                                 batch["allele_mask"])
+                    else:
+                        val, _, _ = losses.moe_loss(
+                            out["experts"], out["meta"], batch["labels"],
+                            batch["site_ids"], batch["allele_mask"], train=False)
+                    total += float(val)
+                    count += 1
+        finally:
+            self.model.train()
+        return total / max(count, 1)
+
+    # -- checkpoints --------------------------------------------------------
+
+    def save(self, path: str, extra=None):
+        params, state = jax_params_from_state_dict(self.model)
+        save_checkpoint(path, params, state,
+                        self.opt.state_dict(self.param_names), self.step,
+                        extra)
+
+    def restore(self, path: str):
+        """Resume the full training state (params, optimizer moments, step
+        counter) from a checkpoint; its ``extra`` dict (the data-order
+        position: epoch, batches_done, seed) is kept on
+        ``self.resume_extra`` for the training loop."""
+        payload = load_full_checkpoint(path)
+        sd = state_dict_from_jax(self.model, payload["params"],
+                                 payload["state"] or {})
+        with torch.no_grad():
+            self.model.load_state_dict(sd, strict=True)
+        if payload.get("opt_state") is not None:
+            self.opt.load_state_dict(payload["opt_state"], self.param_names)
+        self.step = int(payload.get("step", 0))
+        self.resume_extra = dict(payload.get("extra") or {})
+        return self

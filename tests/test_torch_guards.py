@@ -27,6 +27,11 @@ COPIED = [
     "counts.py", "assembly.py", "featurize.py", "window.py", "native.py",
     "pipeline/__init__.py", "pipeline/hotspots.py", "pipeline/candidates.py",
     "pipeline/batching.py", "sim.py", "nn/archs.py",
+    "io/bed.py", "labels.py", "pipeline/labeling.py", "pipeline/dump.py",
+    "pipeline/evaluate.py", "pipeline/merge.py", "pipeline/cleanup.py",
+    "pipeline/labels_to_vcf.py", "pipeline/failure_analysis.py",
+    "pipeline/gen_dump_combinations.py", "train/__init__.py",
+    "train/store.py", "train/interop.py", "train/loader.py",
 ]
 
 _IMPORT = re.compile(
@@ -57,7 +62,9 @@ def test_port_imports_without_jax_or_hello_tpu():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['hello_tpu'] = None; "
             "import hello_tpu_torch.pipeline.call, hello_tpu_torch.nn.convert, "
-            "hello_tpu_torch.ops.read_conv, hello_tpu_torch.telemetry")
+            "hello_tpu_torch.ops.read_conv, hello_tpu_torch.telemetry, "
+            "hello_tpu_torch.train.cli, hello_tpu_torch.train.transfer, "
+            "hello_tpu_torch.pipeline.dump, hello_tpu_torch.pipeline.evaluate")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -137,3 +144,31 @@ def test_unported_precision_and_layers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.build_network([{"type": "BatchNorm1d",
                                "kwargs": {"num_features": 4}}])
+
+
+@pytest.mark.parametrize("flags,error", [
+    (["--distributed"], NotImplementedError),
+    (["--num_devices", "2"], NotImplementedError),
+    (["--profile_dir", "x"], SystemExit),
+])
+def test_train_cli_rejects_unported_options(tmp_path, capsys, flags, error):
+    """One process and one device: data parallelism and the device trace
+    raise, naming their ROADMAP items."""
+    from hello_tpu_torch.train.cli import main
+
+    index = tmp_path / "x.index"
+    index.write_bytes(b"")
+    with pytest.raises(error) as info:
+        main(["--data", str(index), "--out_prefix", str(tmp_path / "m"),
+              "--model", "illumina", "--device", "cpu"] + flags)
+    said = str(info.value) + capsys.readouterr().err
+    assert "ROADMAP" in said
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(create_model("illumina"), TrainConfig())
