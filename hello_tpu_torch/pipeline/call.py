@@ -13,19 +13,24 @@ worker-pool caller (pipeline/parallel_call.call_parallel) with
 (``--provide_features``) adds the per-expert, best and mean VCF streams, the
 meta-expert's choices and the per-site features.
 
-Everything runs on ``cuda`` unless the caller passes ``device="cpu"``
-(``--device cpu``); without a card the default raises instead of carrying
-on on the CPU.
+Everything runs on the cards unless the caller passes ``device="cpu"``
+(``--device cpu``): the Scorer round-robins batches over every visible card
+(``--device cuda:N`` pins one), and without a card the default raises
+instead of carrying on on the CPU.  ``--profile_dir`` traces the run
+(telemetry.device_trace).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import logging
 import os
 import pickle
 import random
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,53 +51,118 @@ from .hotspots import (candidate_intervals, cluster_hotspots, detect_hotspots,
 logger = logging.getLogger(__name__)
 
 ROADMAP_WAITS = "ROADMAP.md Queue 1"
-ROADMAP_PROFILE = "ROADMAP.md Queue 1 item 10"
 
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names another device; raises when CUDA is
-    asked for (or defaulted to) on a machine without a card."""
+    asked for (or defaulted to) on a machine without a card, or for a card
+    that is not visible."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
                            "device='cpu' (--device cpu) to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is not None \
+            and device.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{device} is not visible: "
+                           f"{torch.cuda.device_count()} card(s)")
     return device
+
+
+def visible_devices() -> List[torch.device]:
+    """Every visible card, ``cuda:0`` up; raises without one."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _on(device: torch.device):
+    """The device's context (current card and its current stream) for the
+    uploads and launches of a dispatch."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
 class Dispatched:
     """A dispatched batch: its results in host memory (filled by
-    device-to-host copies still in flight until ``event`` completes)."""
+    device-to-host copies still in flight until ``event`` completes), and
+    the position in ``Scorer.devices`` it ran on."""
     out: Dict[str, Optional[torch.Tensor]]
     event: Optional[torch.cuda.Event] = None
+    position: int = 0
+    outstanding: bool = True
+
+
+@dataclasses.dataclass
+class _Replica:
+    """One position's model, its folded read convolvers, the primary's
+    generation they were made from, and the (parameter, in-place version)
+    pairs of the read convolvers that were folded."""
+    model: MoEAttention
+    folded: Optional[dict] = None
+    folded_from: Optional[list] = None
+    generation: int = -1
+
+
+def _versions(tensors):
+    return [(t, t._version) for t in tensors]
+
+
+def _unchanged(record, tensors) -> bool:
+    return (record is not None and len(record) == len(tensors)
+            and all(t is u and v == u._version
+                    for (t, v), u in zip(record, tensors)))
+
+
+def _slots(model):
+    """Every submodule, parameter and buffer of ``model`` as (the dict that
+    holds it, its key, it, its in-place version or None)."""
+    return [(d, k, v, getattr(v, "_version", None)) for m in model.modules()
+            for d in (m._modules, m._parameters, m._buffers)
+            for k, v in d.items() if v is not None]
 
 
 class Scorer:
-    """Batched model forward on one device.
+    """Batched model forward, round-robin over ``devices``.
+
+    ``devices`` defaults to every visible card (one process drives them all:
+    the pipelined callers keep several batches in flight, so N cards run N
+    batches at once); ``device=`` is the one-device spelling, and ``cpu``
+    the CPU.  The model given is the primary, on ``devices[0]``; every other
+    position gets its own replica and fold, copied from the primary before
+    its next dispatch whenever a primary parameter was replaced or changed
+    in place (``load_state_dict``, an optimiser step), and every position
+    folds its read convolvers again when theirs changed, so a swap of
+    weights never runs stale ones.  The accounting is keyed by position, so
+    one device may appear twice: ``dispatch_counts``, batches dispatched
+    and not yet finalized per position, and ``peak_concurrent_devices``, the
+    most positions holding work at once.
 
     ``compact`` (ship the coded wire for dense batches), ``packed_conv``
     (run the read convolver over the wire's packed rows instead of the dense
     ``A*R`` grid) and ``device_decode`` (decode genotypes on the device and
     fetch 13 bytes per site) default to on for CUDA, as hello_tpu defaults
     them on for accelerators; ``compact`` and ``packed_conv`` default to off
-    on the CPU.  The read-convolver weights are folded for the kernel here,
-    and folded again at the next dispatch whenever a read-convolver
-    parameter is replaced or changed in place (``load_state_dict``, an
-    optimiser step), so a swap of weights never runs a stale fold."""
+    on the CPU."""
 
     # consumes pre-coded WireBatch inputs (pack_sites_wire) directly
     accepts_wire = True
-    # dispatch depth: the device holds the next batches while the host
-    # decodes earlier ones; inputs of in-flight batches stay on the device
-    max_in_flight = 4
 
     def __init__(self, model: MoEAttention, device=None,
                  compact: Optional[bool] = None,
                  packed_conv: Optional[bool] = None,
-                 device_decode: bool = True):
-        self.device = resolve_device(device)
+                 device_decode: bool = True,
+                 devices: Optional[Sequence] = None):
+        if device is not None and devices is not None:
+            raise ValueError("pass device or devices, not both")
+        if devices is None:
+            devices = visible_devices() if device is None else [device]
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a Scorer needs at least one device")
+        self.device = self.devices[0]
         self.precision = nn_layers.PRECISION
         # cuBLAS's and cuDNN's TF32 switches as the precision in force wants
         # them (torch's own default lets cuDNN take TF32 even at highest)
@@ -102,40 +172,89 @@ class Scorer:
         self.compact = on_card if compact is None else compact
         self.packed_conv = on_card if packed_conv is None else packed_conv
         self.device_decode = device_decode
-        self._folded_from = None
-        self._fold()
+        self._replicas: List[Optional[_Replica]] = [None] * len(self.devices)
+        self._replicas[0] = _Replica(self.model)
+        self._next = 0
+        # the primary's slots as last seen, and a generation bumped whenever
+        # one of them was replaced or changed in place
+        self._slots = _slots(self.model)
+        self._generation = 0
+        # dispatch (the caller's or a stager thread) and finalize (a drainer
+        # thread, parallel_call._AsyncDrainer) share the accounting
+        self._account_lock = threading.Lock()
+        self.dispatch_counts: Dict[int, int] = {}
+        self._outstanding: Dict[int, int] = {}
+        self.peak_concurrent_devices = 0
+        self._refresh(0)
 
-    def _read_conv_params(self):
+    @property
+    def max_in_flight(self) -> int:
+        """Dispatch depth: the devices hold the next batches while the host
+        decodes earlier ones (inputs of in-flight batches stay on their
+        device), two per device so each has the next queued."""
+        return max(4, 2 * len(self.devices) + 2)
+
+    @property
+    def folded(self) -> dict:
+        """The primary's folded read convolvers."""
+        return self._replicas[0].folded
+
+    def replica_folds(self) -> List[dict]:
+        """Each position's folded read convolvers (None before its first
+        dispatch)."""
+        return [None if r is None else r.folded for r in self._replicas]
+
+    @staticmethod
+    def _read_conv_params(model):
         return [p for name in ("read_conv0", "read_conv1")
-                if self.model.net(name) is not None
-                for p in self.model.net(name).parameters()]
+                if model.net(name) is not None
+                for p in model.net(name).parameters()]
 
-    def _fold(self):
-        """Fold the read convolvers for the kernel when their parameters
-        are not those (same objects, same in-place versions) of the last
-        fold."""
-        params = self._read_conv_params()
-        last = self._folded_from
-        if (last is not None and len(last) == len(params)
-                and all(p is q and v == q._version
-                        for (p, v), q in zip(last, params))):
-            return
-        with torch.no_grad():
-            self.folded = self.model.fold_read_convs()
-        self._folded_from = [(p, p._version) for p in params]
+    def _primary_generation(self) -> int:
+        """Bump the generation when a submodule, parameter or buffer of the
+        primary is not the one (same object, same in-place version) seen at
+        the last dispatch: one pass over the cached slots per dispatch, a
+        walk of the model only after a change."""
+        if not all(d.get(k) is v and (n is None or v._version == n)
+                   for d, k, v, n in self._slots):
+            self._slots = _slots(self.model)
+            self._generation += 1
+        return self._generation
 
-    def _upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """numpy wire/dense dict -> tensors on the device, through pinned
+    @torch.no_grad()
+    def _refresh(self, pos: int) -> _Replica:
+        """Position ``pos``'s replica, copied from the primary when the
+        primary changed since the last copy, and folded again when its read
+        convolvers are not those of the last fold."""
+        generation = self._primary_generation()
+        rep = self._replicas[pos]
+        if rep is None:
+            rep = _Replica(copy.deepcopy(self.model).to(self.devices[pos]))
+            self._replicas[pos] = rep
+        elif rep.generation == generation:
+            return rep
+        elif pos:
+            rep.model.load_state_dict(self.model.state_dict())
+        rep.generation = generation
+        params = self._read_conv_params(rep.model)
+        if not _unchanged(rep.folded_from, params):
+            rep.folded = rep.model.fold_read_convs()
+            rep.folded_from = _versions(params)
+        return rep
+
+    def _upload(self, arrays: Dict[str, np.ndarray],
+                device: torch.device) -> Dict[str, torch.Tensor]:
+        """numpy wire/dense dict -> tensors on ``device``, through pinned
         host buffers and asynchronous copies."""
         out = {}
         for k, v in arrays.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
             out[k] = t
         return out
 
-    def _forward(self, d, decode):
+    def _forward(self, rep: _Replica, d, decode):
         if (self.packed_conv and "codes0" in d
                 and ("codes1" in d or "read_mask1" not in d)):
             from .compact import expand_compact_packed
@@ -143,8 +262,7 @@ class Scorer:
         else:
             from .compact import expand_compact
             batch = expand_compact(d)          # no-op for dense batches
-        self._fold()
-        out = self.model(batch, folded=self.folded)
+        out = rep.model(batch, folded=rep.folded)
         if decode:
             from ..nn.genotype import decode_pairs_device
             return decode_pairs_device(
@@ -153,8 +271,9 @@ class Scorer:
         return out
 
     def score_async(self, batch: PaddedBatch, decode: bool = False) -> Dispatched:
-        """Dispatch the forward without waiting for the device; the results'
-        device-to-host copies start at once and an event marks their end.
+        """Dispatch the forward to the next device of the round robin
+        without waiting for it; the results' device-to-host copies start at
+        once and an event marks their end.
 
         ``decode=True`` (honoured only when ``device_decode`` is on) runs the
         genotype decode on the device and returns the per-site winners
@@ -167,10 +286,14 @@ class Scorer:
             d = compact_batch(batch)
         else:
             d = batch.device_dict()
-        with torch.inference_mode():
-            out = self._forward(self._upload(d), decode)
-            if self.device.type != "cuda":
-                return Dispatched(out)
+        pos = self._next % len(self.devices)
+        self._next += 1
+        device = self.devices[pos]
+        rep = self._refresh(pos)
+        with torch.inference_mode(), _on(device):
+            out = self._forward(rep, self._upload(d, device), decode)
+            if device.type != "cuda":
+                return self._account(Dispatched(out, position=pos))
             host = {}
             for k, t in out.items():
                 if t is None:
@@ -181,7 +304,18 @@ class Scorer:
                 host[k] = h
             event = torch.cuda.Event()
             event.record()
-        return Dispatched(host, event)
+        return self._account(Dispatched(host, event, pos))
+
+    def _account(self, result: Dispatched) -> Dispatched:
+        """Count a dispatch and the positions holding work."""
+        pos = result.position
+        with self._account_lock:
+            self.dispatch_counts[pos] = self.dispatch_counts.get(pos, 0) + 1
+            self._outstanding[pos] = self._outstanding.get(pos, 0) + 1
+            busy = sum(1 for v in self._outstanding.values() if v > 0)
+            self.peak_concurrent_devices = max(self.peak_concurrent_devices,
+                                               busy)
+        return result
 
     @staticmethod
     def _host_form(out):
@@ -196,14 +330,22 @@ class Scorer:
         return self.finalize_many([result])[0]
 
     def finalize_many(self, results: Sequence[Dispatched]):
-        """Finalize several ``score_async`` results behind one wait: batches
-        run in dispatch order on one stream, so once the newest event is
-        done every older one is too."""
+        """Finalize several ``score_async`` results behind one wait per
+        device: batches run in dispatch order on each device's stream, so
+        once a device's newest event is done so is every older one there."""
         if not results:
             return []
-        events = [r.event for r in results if r.event is not None]
-        if events:
-            events[-1].synchronize()
+        newest = {}
+        for r in results:
+            if r.event is not None:
+                newest[r.position] = r.event
+        for event in newest.values():
+            event.synchronize()
+        with self._account_lock:
+            for r in results:
+                if r.outstanding:
+                    r.outstanding = False
+                    self._outstanding[r.position] -= 1
         return [self._host_form(r.out) for r in results]
 
     def __call__(self, batch: PaddedBatch):
@@ -503,8 +645,10 @@ def load_scorer(model_name: str, checkpoint: Optional[str] = None,
                 seed: int = 0, device=None) -> Scorer:
     """Build a Scorer from a named config: seeded random init, a torch state
     dict (``.pt`` / ``.pth``), or a hello_tpu pytree checkpoint (numpy
-    pickle).  Reference ``.wrapper.dnn`` files wait for a later slice."""
-    device = resolve_device(device)
+    pickle).  It scores on ``device``, or round-robin over every visible
+    card when none is named.  Reference ``.wrapper.dnn`` files wait for a
+    later slice."""
+    devices = visible_devices() if device is None else [resolve_device(device)]
     model = create_model(model_name)
     if checkpoint is None:
         from ..nn.convert import init_params
@@ -519,7 +663,7 @@ def load_scorer(model_name: str, checkpoint: Optional[str] = None,
         from ..nn.convert import load_jax_checkpoint
         model.load_state_dict(load_jax_checkpoint(checkpoint, model),
                               strict=True)
-    return Scorer(model, device=device)
+    return Scorer(model, devices=devices)
 
 
 def main(argv=None):
@@ -545,8 +689,9 @@ def main(argv=None):
     parser.add_argument("--q_threshold", type=int, default=10)
     parser.add_argument("--mapq_threshold", type=int, default=10)
     parser.add_argument("--reconcilement_size", type=int, default=10)
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda:N (one card) or cpu; default: every "
+                             "visible card, round-robin")
     # hello_tpu's default: bf16 conv activations on the card's bf16 route
     parser.add_argument("--precision", default=os.environ.get(
         "HELLO_TPU_PRECISION", "bf16"),
@@ -570,15 +715,13 @@ def main(argv=None):
                              "meta-expert's choices and per-site features "
                              "(in-process calling only)")
     parser.add_argument("--profile_dir", default=None,
-                        help="device trace directory (not ported yet)")
+                        help="write a torch.profiler trace of the run here")
     parser.add_argument("--log", default=None)
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, filename=args.log,
                         format="%(asctime)s %(levelname)s %(message)s")
 
-    if args.profile_dir:
-        parser.error(f"--profile_dir is not ported yet ({ROADMAP_PROFILE})")
     if args.precision not in nn_layers.PRECISIONS:
         parser.error(f"--precision {args.precision} is not one of "
                      f"{', '.join(nn_layers.PRECISIONS)}")
@@ -603,6 +746,16 @@ def main(argv=None):
             regions = [(parts[0], int(parts[1]), int(parts[2]))]
 
     nn_layers.set_precision(args.precision)
+    # the trace covers the run from load_scorer to the end, as hello_tpu's
+    on_card = args.device is None or torch.device(args.device).type == "cuda"
+    trace = (telemetry.device_trace(args.profile_dir, cuda=on_card)
+             if args.profile_dir else contextlib.nullcontext())
+    with trace:
+        _call(parser, args, bams, regions)
+    logger.info("Completed running the script")
+
+
+def _call(parser, args, bams, regions):
     scorer = load_scorer(args.model, args.checkpoint, seed=args.seed,
                          device=args.device)
     want = 2 if scorer.model.hybrid else 1
@@ -640,7 +793,6 @@ def main(argv=None):
         call_genome(bams, args.ref, scorer, args.out, regions=regions,
                     provide_experts=args.provide_features, **options)
     telemetry.log_report()
-    logger.info("Completed running the script")
 
 
 if __name__ == "__main__":

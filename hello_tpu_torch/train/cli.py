@@ -1,20 +1,28 @@
-"""Training CLI: train the MoE model from dumped shards on one device.
+"""Training CLI: train the MoE model from dumped shards, on one card or on
+several, one process each.
 
-The port of hello_tpu's train/cli.py at one process and one device
-(``python -m hello_tpu_torch.train.cli --data 'dump*.index' --model illumina
---out_prefix run``; ``--device cpu`` without a card).  Every argument of
-hello_tpu's ``train_from_shards`` is kept, and ``device`` is added.  On the
-card the defaults ship coded-wire batches (expanded on the device) and
-overlap: a prefetch thread packs the next batch and uploads it through
-pinned buffers while the step in flight runs, and each step's loss is read
-one step late.  Outputs: ``<out_prefix>.metrics.jsonl``, ``.epoch<n>.ckpt``,
-``.best.ckpt`` (with a validation split) and ``.final.ckpt``, in hello_tpu's
-checkpoint format.
+The port of hello_tpu's train/cli.py (``python -m hello_tpu_torch.train.cli
+--data 'dump*.index' --model illumina --out_prefix run``; ``--device cpu``
+without a card).  Every argument of hello_tpu's ``train_from_shards`` is
+kept, and ``device`` is added.  ``--num_devices k`` makes each step hello_tpu's
+k-device step: k sub-batches on this process's device, their losses and
+gradients summed.  N cards train as N processes, ``torchrun --nproc_per_node
+N -m hello_tpu_torch.train.cli --distributed ...``: each rank trains on its
+share of the shard files, every step's sums are summed over the ranks
+(NCCL; gloo with ``--device cpu``), an epoch ends when any rank runs out of
+batches, and rank 0 alone writes checkpoints and metrics.  On the card the
+defaults ship coded-wire batches (expanded on the device) and overlap: a
+prefetch thread packs the next batch and uploads it through pinned buffers
+while the step in flight runs, and each step's loss is read one step late.
+``--profile_dir`` traces the run (telemetry.device_trace).  Outputs:
+``<out_prefix>.metrics.jsonl``, ``.epoch<n>.ckpt``, ``.best.ckpt`` (with a
+validation split) and ``.final.ckpt``, in hello_tpu's checkpoint format.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import logging
@@ -22,10 +30,12 @@ import math
 import pickle
 import time
 
+from .. import telemetry
 from ..nn.moe import create_model
-from ..pipeline.call import ROADMAP_PROFILE, resolve_device
-from .loader import SiteDataset, batches, device_batches
-from .trainer import ROADMAP_DATA_PARALLEL, TrainConfig, Trainer, _to_numpy
+from ..parallel import mesh
+from ..pipeline.call import resolve_device
+from .loader import SiteDataset, batches, device_batches, shard_files_for_ranks
+from .trainer import TrainConfig, Trainer, _to_numpy
 
 logger = logging.getLogger(__name__)
 
@@ -114,12 +124,11 @@ def train_from_shards(
     steps_per_epoch: int = 0, wire: bool = None, remat: bool = False,
     overlap: bool = None, device=None,
 ):
-    """Train ``model_name`` on the shard indexes ``files`` on one device
-    (``cuda`` unless ``device`` names another); returns the Trainer."""
-    if num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"num_devices={num_devices}: one device only "
-            f"({ROADMAP_DATA_PARALLEL})")
+    """Train ``model_name`` on the shard indexes ``files`` on ``device``
+    (``cuda`` unless it names another), ``num_devices`` sub-batches per
+    step; inside a process group (parallel/mesh.init_distributed) the ranks'
+    steps are summed and rank 0 writes the outputs.  Returns the Trainer."""
+    n_dev = 1 if num_devices is None else int(num_devices)
     device = resolve_device(device)
     on_card = device.type == "cuda"
     # coded-wire batches (expanded on the device): ~6x less host-to-device
@@ -157,7 +166,8 @@ def train_from_shards(
         entropy_regularizer=entropy_regularizer, entropy_decay=entropy_decay,
         smoothing=smoothing, aux_weight=aux_weight, binary=binary,
         remat=remat)
-    trainer = Trainer(model, config, device=device, seed=seed)
+    trainer = Trainer(model, config, device=device, seed=seed,
+                      num_devices=n_dev)
     start_epoch, skip_batches = 0, 0
     best_val = float("inf")
     if resume:
@@ -194,15 +204,22 @@ def train_from_shards(
         allele_bucket = batch_alleles
     fixed = {"read_bucket": read_bucket, "allele_bucket": allele_bucket,
              "site_bucket": site_bucket}
-    metrics_path = f"{out_prefix}.metrics.jsonl"
-    with open(metrics_path, "a") as metrics_fh:
+    # checkpoints and the metrics stream are rank 0's: every rank writing
+    # the same paths would race the atomic-replace save
+    multiprocess = mesh.world_size() > 1
+    rank0 = mesh.rank() == 0
+    # crash dumps must not collide across ranks
+    dump_prefix = (f"{out_prefix}.rank{mesh.rank()}" if multiprocess
+                   else out_prefix)
+    metrics_fh = open(f"{out_prefix}.metrics.jsonl", "a") if rank0 else None
+    try:
         for epoch in range(start_epoch, num_epochs):
             dataset = SiteDataset(train_files, max_reads_per_site,
                                   shuffle=True, seed=seed + epoch,
                                   coverage_range=coverage_range)
             epoch_loss, n_batches, n_trained = 0.0, 0, 0
             start_t = time.time()
-            batch_src = device_batches(dataset, model.hybrid, 1,
+            batch_src = device_batches(dataset, model.hybrid, n_dev,
                                        batch_alleles, channels=channels,
                                        fixed_shape=fixed, wire=wire)
             if overlap:
@@ -227,7 +244,7 @@ def train_from_shards(
                 pending = None
                 loss, per_expert = trainer.read_metrics(m)
                 if not math.isfinite(loss):
-                    prefix = f"{out_prefix}.step{step_no}.err"
+                    prefix = f"{dump_prefix}.step{step_no}.err"
                     trainer.save(f"{prefix}.ckpt")
                     with open(f"{prefix}.payload.pkl", "wb") as fh:
                         pickle.dump(_to_numpy(payload), fh)
@@ -241,7 +258,13 @@ def train_from_shards(
             try:
                 while True:
                     stacked = next(batch_iter, None)
-                    if stacked is None:
+                    if multiprocess:
+                        # every rank enters the step's all-reduce the same
+                        # number of times: stop as soon as ANY rank runs dry
+                        # (ranks' shard files never split sites alike)
+                        if not trainer.all_ranks_have(stacked is not None):
+                            break
+                    elif stacked is None:
                         break
                     n_batches += 1        # absolute position within the epoch
                     if skip_batches > 0:
@@ -254,10 +277,11 @@ def train_from_shards(
                         pending = (m, stacked, trainer.step)
                     else:
                         metrics = trainer.train_batch(
-                            stacked, crash_dump_prefix=out_prefix)
+                            stacked, crash_dump_prefix=dump_prefix)
                         epoch_loss += metrics["loss"]
                         n_trained += 1
-                    if checkpoint_every and trainer.step % checkpoint_every == 0:
+                    if rank0 and checkpoint_every \
+                            and trainer.step % checkpoint_every == 0:
                         trainer.save(
                             f"{out_prefix}.step{trainer.step}.ckpt",
                             extra={"epoch": epoch, "batches_done": n_batches,
@@ -278,6 +302,10 @@ def train_from_shards(
                 "epoch %d: train_loss=%.4f (%d batches, %.1fs) val_loss=%s",
                 epoch, epoch_loss / max(n_trained, 1), n_trained, elapsed,
                 f"{val_loss:.4f}" if val_loss is not None else "n/a")
+            if val_loss is not None and val_loss < best_val:
+                best_val = val_loss
+            if not rank0:
+                continue
             metrics_fh.write(json.dumps({
                 "epoch": epoch, "step": trainer.step,
                 "train_loss": epoch_loss / max(n_trained, 1),
@@ -286,22 +314,24 @@ def train_from_shards(
                 "per_expert": metrics.get("per_expert") if n_trained else None,
             }) + "\n")
             metrics_fh.flush()
-
-            if val_loss is not None and val_loss < best_val:
-                best_val = val_loss
             epoch_extra = {"epoch": epoch + 1, "batches_done": 0,
                            "seed": seed, "best_val": best_val}
             if val_loss is not None and val_loss == best_val:
                 trainer.save(f"{out_prefix}.best.ckpt", extra=epoch_extra)
             trainer.save(f"{out_prefix}.epoch{epoch}.ckpt", extra=epoch_extra)
-    trainer.save(f"{out_prefix}.final.ckpt",
-                 extra={"epoch": num_epochs, "batches_done": 0, "seed": seed})
+        if rank0:
+            trainer.save(f"{out_prefix}.final.ckpt",
+                         extra={"epoch": num_epochs, "batches_done": 0,
+                                "seed": seed})
+    finally:
+        if metrics_fh is not None:
+            metrics_fh.close()
     return trainer
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="hello_tpu_torch MoE trainer (one device)")
+        description="hello_tpu_torch MoE trainer")
     parser.add_argument("--data", required=True,
                         help=".lst file of shard indices, or a glob")
     parser.add_argument("--model", default="hybrid")
@@ -312,7 +342,9 @@ def main(argv=None):
                         help="Adam | SGD | SGDR")
     parser.add_argument("--batch_alleles", type=int, default=64)
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="1 (one device; data parallelism is not ported)")
+                        help="sub-batches per step on this process's device "
+                             "(hello_tpu's step on that many devices); "
+                             "default 1")
     parser.add_argument("--val_fraction", type=float, default=0.1)
     parser.add_argument("--max_reads_per_site", type=int, default=1000)
     parser.add_argument("--read_bucket", type=int, default=64)
@@ -342,9 +374,12 @@ def main(argv=None):
                         help="also checkpoint every N optimisation steps "
                              "(mid-epoch, resumable at the exact batch)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training (not ported)")
+                        help="one process per card under torchrun (reads "
+                             "MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, "
+                             "LOCAL_RANK): NCCL on cuda:LOCAL_RANK, gloo "
+                             "with --device cpu")
     parser.add_argument("--profile_dir", default=None,
-                        help="device trace directory (not ported yet)")
+                        help="write a torch.profiler trace of the run here")
     parser.add_argument("--wire", choices=["auto", "0", "1"], default="auto",
                         help="coded-wire training batches (1-byte cells "
                              "expanded on the device): auto = on for the "
@@ -355,16 +390,23 @@ def main(argv=None):
                              "each step's loss one step late: auto = on for "
                              "the card")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK with "
+                             "--distributed) or cpu")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    device = args.device
     if args.distributed:
-        raise NotImplementedError(
-            f"--distributed is not ported ({ROADMAP_DATA_PARALLEL})")
-    if args.profile_dir:
-        parser.error(f"--profile_dir is not ported yet ({ROADMAP_PROFILE})")
+        device = mesh.init_distributed(device)
+    try:
+        _run(parser, args, device)
+    finally:
+        mesh.destroy_distributed()
+    logger.info("Completed running the script")
+
+
+def _run(parser, args, device):
     files = read_file_list(args.data)
     if not files:
         parser.error(f"no shard files found for {args.data}")
@@ -379,25 +421,34 @@ def main(argv=None):
             parser.error("--subsample_coverage needs 0 < LO <= HI <= 1, "
                          f"got {args.subsample_coverage!r}")
         coverage_range = (lo, hi)
-    train_from_shards(
-        files, args.model, args.out_prefix,
-        num_epochs=args.num_epochs, lr=args.lr, optimizer=args.optimizer,
-        batch_alleles=args.batch_alleles, num_devices=args.num_devices,
-        val_fraction=args.val_fraction,
-        max_reads_per_site=args.max_reads_per_site,
-        read_bucket=args.read_bucket, t0=args.T0, t_mult=args.Tmult,
-        min_lr=args.minLr, warmup=args.warmup,
-        entropy_regularizer=args.entropy_regularizer,
-        entropy_decay=args.entropy_decay, smoothing=args.smoothing,
-        aux_weight=args.aux_loss, weight_decay=args.weight_decay,
-        seed=args.seed, channels=7 if args.include_hp else None,
-        resume=args.resume, coverage_range=coverage_range,
-        checkpoint_every=args.checkpoint_every,
-        wire=None if args.wire == "auto" else args.wire == "1",
-        remat=args.remat,
-        overlap=None if args.overlap == "auto" else args.overlap == "1",
-        device=args.device)
-    logger.info("Completed running the script")
+    if mesh.world_size() > 1:
+        # shard files balanced across ranks; the per-batch barrier
+        # (Trainer.all_ranks_have) equalises the steps per epoch
+        per_rank, _ = shard_files_for_ranks(files, mesh.world_size())
+        files = per_rank[mesh.rank()]
+        logger.info("rank %d takes %d shard files", mesh.rank(), len(files))
+    trace = (telemetry.device_trace(
+        args.profile_dir, cuda=resolve_device(device).type == "cuda")
+        if args.profile_dir else contextlib.nullcontext())
+    with trace:
+        train_from_shards(
+            files, args.model, args.out_prefix,
+            num_epochs=args.num_epochs, lr=args.lr, optimizer=args.optimizer,
+            batch_alleles=args.batch_alleles, num_devices=args.num_devices,
+            val_fraction=args.val_fraction,
+            max_reads_per_site=args.max_reads_per_site,
+            read_bucket=args.read_bucket, t0=args.T0, t_mult=args.Tmult,
+            min_lr=args.minLr, warmup=args.warmup,
+            entropy_regularizer=args.entropy_regularizer,
+            entropy_decay=args.entropy_decay, smoothing=args.smoothing,
+            aux_weight=args.aux_loss, weight_decay=args.weight_decay,
+            seed=args.seed, channels=7 if args.include_hp else None,
+            resume=args.resume, coverage_range=coverage_range,
+            checkpoint_every=args.checkpoint_every,
+            wire=None if args.wire == "auto" else args.wire == "1",
+            remat=args.remat,
+            overlap=None if args.overlap == "auto" else args.overlap == "1",
+            device=device)
 
 
 if __name__ == "__main__":

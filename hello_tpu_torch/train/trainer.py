@@ -1,13 +1,21 @@
-"""One-device trainer: the train-mode forward under autograd, the losses of
-train/loss.py and optax's update rules, written out.
+"""Data-parallel trainer: the train-mode forward under autograd, the losses
+of train/loss.py and optax's update rules, written out.
 
-The port of hello_tpu's train/trainer.py on one device.  hello_tpu runs one
-jitted step over a ``data`` mesh; here a step is the model's train-mode
-forward (the read convolvers through their layer modules, cuDNN on the card),
-``torch.autograd.grad`` and ``Optimizer.update``, all dispatched without a
-host wait unless the caller asks for the loss.  Batches enter stacked with a
-leading device axis of size 1, as ``train/loader.device_batches`` stacks
-them; dense or coded-wire (expanded on the device, labels carried through).
+The port of hello_tpu's train/trainer.py.  hello_tpu runs one jitted step
+over a ``data`` mesh: each device takes one sub-batch of the stacked batch's
+leading axis, and ``psum`` sums the loss, the per-expert losses and the
+gradients before the optimizer sees them.  Here a stacked batch's leading
+axis holds ``num_devices`` sub-batches that run on this process's device in
+order (the model's train-mode forward, cuDNN on the card, then
+``torch.autograd.grad``), their losses and gradients summed in fp32; across
+processes (one per card, ``parallel/mesh.init_distributed``) one
+``all_reduce(SUM)`` of a single flat fp32 buffer adds the other ranks' sums,
+and ``Optimizer.update`` follows.  The sum, not the mean: optax's clip and
+Adam's eps are not scale-free, so ``DistributedDataParallel``'s mean would
+train another model (and its hooks need ``.backward()``, which the trainer
+does not call).  Nothing waits on the host unless the caller asks for the
+loss.  Batches are dense or coded-wire (expanded on the device, labels
+carried through).
 """
 
 from __future__ import annotations
@@ -20,20 +28,19 @@ from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from ..nn import layers as L
 from ..nn.convert import init_params, jax_params_from_state_dict, state_dict_from_jax
 from ..nn.moe import MoEAttention
+from ..parallel import mesh
 from ..pipeline.call import resolve_device
 from . import loss as losses
 from .checkpoint import load_full_checkpoint, save_checkpoint
 from .schedule import cosine_warm_restarts, entropy_decay, sine_warmup_restarts
 
 logger = logging.getLogger(__name__)
-
-#: ROADMAP item named by what the one-device trainer does not do
-ROADMAP_DATA_PARALLEL = "ROADMAP.md Queue 1 item 11b (data-parallel training)"
 
 
 @dataclasses.dataclass
@@ -202,17 +209,22 @@ def _to_numpy(tree):
 
 
 class Trainer:
-    """One-device trainer with hello_tpu's interface.
+    """Data-parallel trainer with hello_tpu's interface.
 
-    ``device_batches`` are dicts with a leading axis of size 1 (numpy, or
-    tensors staged by ``stage_batches``).  ``params`` optionally gives the
-    initial weights as a state dict; otherwise they are the seeded init of
-    nn/convert.init_params.  Training runs at the precision in force
-    (nn/layers.PRECISION; hello_tpu trains at ``highest``), whose cuBLAS and
-    cuDNN TF32 switches are applied here."""
+    ``device_batches`` are dicts with a leading axis of ``num_devices``
+    sub-batches (numpy, or tensors staged by ``stage_batches``): hello_tpu's
+    step on a ``num_devices``-device mesh, run on this process's device.
+    Inside a process group (``parallel/mesh.init_distributed``) every rank's
+    parameters start as rank 0's and each step's sums are summed over the
+    ranks.  ``params`` optionally gives the initial weights as a state dict;
+    otherwise they are the seeded init of nn/convert.init_params.  Training
+    runs at the precision in force (nn/layers.PRECISION; hello_tpu trains at
+    ``highest``), whose cuBLAS and cuDNN TF32 switches are applied here."""
 
     def __init__(self, model: MoEAttention, config: TrainConfig, device=None,
-                 params=None, seed: int = 13):
+                 params=None, seed: int = 13, num_devices: int = 1):
+        if num_devices < 1:
+            raise ValueError(f"num_devices must be >= 1, got {num_devices}")
         self.device = resolve_device(device)
         L.set_precision(L.PRECISION)
         if params is None:
@@ -220,10 +232,19 @@ class Trainer:
         else:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).train()
+        if ((num_devices > 1 or mesh.is_distributed())
+                and next(self.model.buffers(), None) is not None):
+            # hello_tpu pmeans the new state over the mesh; every ported
+            # config is stateless (batch norm is ROADMAP Queue 1 item 1)
+            raise NotImplementedError(
+                "data-parallel training of a model with state (buffers) is "
+                "not ported (ROADMAP.md Queue 1 item 1)")
+        self.num_devices = num_devices
         self.config = config
         named = list(self.model.named_parameters())
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self._broadcast_params()
         self.opt = Optimizer(config, self.params)
         self.step = 0
         self.resume_extra = {}
@@ -250,27 +271,37 @@ class Trainer:
         self._stage_stream.synchronize()
         return out
 
-    def _device_batch(self, device_batches):
-        """The one device's batch: index 0 of the stacked axis, on the
-        device."""
-        out = {}
+    def _sub_batches(self, device_batches, expect=None) -> List[dict]:
+        """The stacked batch's sub-batches (its leading axis), on the
+        device; raises when ``expect`` is given and the axis differs."""
+        sizes = {len(v) for v in device_batches.values()}
+        if len(sizes) != 1:
+            raise ValueError(f"stacked batch's leading axes differ: {sizes}")
+        n = sizes.pop()
+        if expect is not None and n != expect:
+            raise ValueError(
+                f"stacked batch holds {n} sub-batches on its leading axis; "
+                f"this trainer takes num_devices={expect}")
+        out = [{} for _ in range(n)]
         for k, v in device_batches.items():
             if isinstance(v, torch.Tensor):
                 if v.device.type == "cuda":
                     # staged on the side stream: keep its memory from being
                     # reused before this step's kernels have read it
                     v.record_stream(torch.cuda.current_stream(v.device))
-                out[k] = v[0]
-            else:
-                t = torch.from_numpy(np.ascontiguousarray(v[0]))
+                for i in range(n):
+                    out[i][k] = v[i]
+                continue
+            for i in range(n):
+                t = torch.from_numpy(np.ascontiguousarray(v[i]))
                 if self.device.type == "cuda":
                     t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
+                out[i][k] = t
         return out
 
     # -- steps ----------------------------------------------------------------
 
-    def _loss_and_grads(self, batch, reg):
+    def _one_loss_and_grads(self, batch, reg):
         if self.config.remat:
             total, per_expert = torch.utils.checkpoint.checkpoint(
                 _batch_loss, self.model, self.config, batch, reg,
@@ -282,12 +313,76 @@ class Trainer:
                  for p, g in zip(self.params, grads)]
         return total.detach(), per_expert.detach(), grads
 
+    def _loss_and_grads(self, device_batches, reg):
+        """hello_tpu's psum'd step: the loss, per-expert losses and
+        gradients of each sub-batch summed in order, then over the ranks."""
+        total = per_expert = grads = None
+        for batch in self._sub_batches(device_batches, self.num_devices):
+            t, pe, g = self._one_loss_and_grads(batch, reg)
+            if grads is None:
+                total, per_expert, grads = t, pe, g
+            else:
+                total, per_expert = total + t, per_expert + pe
+                torch._foreach_add_(grads, g)
+        if mesh.is_distributed():
+            summed = self._all_reduce([total.reshape(1), per_expert] + grads)
+            total, per_expert, grads = summed[0][0], summed[1], summed[2:]
+        return total, per_expert, grads
+
+    @staticmethod
+    def _all_reduce(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor summed over the process group, through ONE
+        ``all_reduce`` of a flat fp32 buffer (views into it come back)."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat)
+        return [part.view_as(t) for part, t in zip(
+            flat.split([t.numel() for t in tensors]), tensors)]
+
+    @torch.no_grad()
+    def _broadcast_params(self):
+        """Inside a process group, every rank takes rank 0's parameters."""
+        if not mesh.is_distributed():
+            return
+        flat = torch.cat([p.reshape(-1) for p in self.params])
+        dist.broadcast(flat, src=0)
+        for p, part in zip(self.params,
+                           flat.split([p.numel() for p in self.params])):
+            p.copy_(part.view_as(p))
+
+    def all_ranks_have(self, flag: bool) -> bool:
+        """True iff every rank reports ``flag`` (parallel/mesh.all_ranks_have):
+        the per-batch barrier of a multi-process epoch."""
+        return mesh.all_ranks_have(flag)
+
     def compute_grads(self, device_batches):
-        """Loss and gradients ({state-dict name: tensor}) without an
-        optimizer update."""
-        total, _, grads = self._loss_and_grads(
-            self._device_batch(device_batches), self._reg(self.step))
+        """Summed loss and gradients ({state-dict name: tensor}) without an
+        optimizer update: the sub-batches', then the ranks'."""
+        total, _, grads = self._loss_and_grads(device_batches,
+                                               self._reg(self.step))
         return float(total), dict(zip(self.param_names, grads))
+
+    def unsharded_step_reference(self, device_batches):
+        """The semantics the summed step must reproduce, serially: each
+        sub-batch's loss and gradients in a loop, summed, on this process
+        alone.  Leaves the trainer as it was.
+
+        Returns ``(total loss, grads, leaf scales)`` keyed by state-dict
+        name; a leaf's scale is its largest per-sub-batch |gradient|, the
+        right normaliser for comparing sums that may cancel to near zero
+        while each term is O(scale)."""
+        reg = self._reg(self.step)
+        total, grads, scales = 0.0, None, None
+        for batch in self._sub_batches(device_batches):
+            t, _, g = self._one_loss_and_grads(batch, reg)
+            total += float(t)
+            gmax = [x.abs().max() for x in g]
+            if grads is None:
+                grads, scales = g, gmax
+            else:
+                grads = [a + b for a, b in zip(grads, g)]
+                scales = [torch.maximum(a, b) for a, b in zip(scales, gmax)]
+        return (total, dict(zip(self.param_names, grads)),
+                {n: float(s) for n, s in zip(self.param_names, scales)})
 
     def train_batch(self, device_batches, crash_dump_prefix: str = None,
                     sync: bool = True) -> Dict[str, float]:
@@ -301,7 +396,7 @@ class Trainer:
         them written (read them with ``read_metrics``); the caller owns the
         finite check."""
         total, per_expert, grads = self._loss_and_grads(
-            self._device_batch(device_batches), self._reg(self.step))
+            device_batches, self._reg(self.step))
         if sync:
             loss = float(total)
             if not math.isfinite(loss):
@@ -376,12 +471,14 @@ class Trainer:
         """Resume the full training state (params, optimizer moments, step
         counter) from a checkpoint; its ``extra`` dict (the data-order
         position: epoch, batches_done, seed) is kept on
-        ``self.resume_extra`` for the training loop."""
+        ``self.resume_extra`` for the training loop.  Every rank reads the
+        checkpoint; the parameters are then rank 0's."""
         payload = load_full_checkpoint(path)
         sd = state_dict_from_jax(self.model, payload["params"],
                                  payload["state"] or {})
         with torch.no_grad():
             self.model.load_state_dict(sd, strict=True)
+        self._broadcast_params()
         if payload.get("opt_state") is not None:
             self.opt.load_state_dict(payload["opt_state"], self.param_names)
         self.step = int(payload.get("step", 0))

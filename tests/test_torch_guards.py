@@ -64,7 +64,8 @@ def test_port_imports_without_jax_or_hello_tpu():
             "import hello_tpu_torch.pipeline.call, hello_tpu_torch.nn.convert, "
             "hello_tpu_torch.ops.read_conv, hello_tpu_torch.telemetry, "
             "hello_tpu_torch.train.cli, hello_tpu_torch.train.transfer, "
-            "hello_tpu_torch.pipeline.dump, hello_tpu_torch.pipeline.evaluate")
+            "hello_tpu_torch.pipeline.dump, hello_tpu_torch.pipeline.evaluate, "
+            "hello_tpu_torch.parallel.mesh, hello_tpu_torch.entry")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -107,18 +108,6 @@ def test_scorer_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert not scorer.packed_conv and not scorer.compact
 
 
-@pytest.mark.parametrize("flags", [["--profile_dir", "x"]])
-def test_cli_rejects_unported_options(tmp_path, capsys, flags):
-    from hello_tpu_torch.pipeline.call import main
-
-    bam = tmp_path / "x.bam"
-    bam.write_bytes(b"")
-    with pytest.raises(SystemExit):
-        main(["--bam", str(bam), "--ref", str(bam), "--out",
-              str(tmp_path / "x.vcf"), "--device", "cpu"] + flags)
-    assert "ROADMAP" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("model,bams", [("illumina", 2), ("hybrid", 1)])
 def test_cli_bam_count_must_match_model(tmp_path, capsys, model, bams):
     """A hybrid model takes two BAMs (illumina,pacbio), a single-tech model
@@ -144,25 +133,6 @@ def test_unported_precision_and_layers_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.build_network([{"type": "BatchNorm1d",
                                "kwargs": {"num_features": 4}}])
-
-
-@pytest.mark.parametrize("flags,error", [
-    (["--distributed"], NotImplementedError),
-    (["--num_devices", "2"], NotImplementedError),
-    (["--profile_dir", "x"], SystemExit),
-])
-def test_train_cli_rejects_unported_options(tmp_path, capsys, flags, error):
-    """One process and one device: data parallelism and the device trace
-    raise, naming their ROADMAP items."""
-    from hello_tpu_torch.train.cli import main
-
-    index = tmp_path / "x.index"
-    index.write_bytes(b"")
-    with pytest.raises(error) as info:
-        main(["--data", str(index), "--out_prefix", str(tmp_path / "m"),
-              "--model", "illumina", "--device", "cpu"] + flags)
-    said = str(info.value) + capsys.readouterr().err
-    assert "ROADMAP" in said
 
 
 def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
