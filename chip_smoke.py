@@ -92,7 +92,38 @@ Phases, each printing one JSON line:
              8-device step as 8 sub-batches on the card against its serial
              reference, the Scorer's round robin over the visible cards
              (dispatch counts, peak concurrency), coded and packed against
-             dense, coded-wire training loss against dense.
+             dense, coded-wire training loss against dense;
+  configs_path  (after parallel_path) the five configs whose read
+             convolvers the kernel does not implement (illumina_addendum on
+             main_path's genome; illumina_wide and illumina_layer_norm on
+             parallel_path's; hybrid_no_ensemble_wide and _addendum on the
+             first 100 kb of hybrid_path's), full width, seeded weights, at
+             highest on the card and the CPU, held as main_path holds them
+             (or 1 - p within the decode's resolution, as train_path);
+             every read convolver on the layer route (its layers under
+             no_grad; layer_route_calls > 0) and no launch of
+             read_conv_reduce; illumina_wide and illumina_layer_norm also at
+             bf16: every layer on the card fed the CPU's own bf16 input
+             (equal but for 0.2% of values, each within two bf16 ulps), and
+             the records held as parallel_path holds bf16; card seconds and
+             windows/s per config; the layer route's read-convolver ms by
+             CUDA events at the kernel phase's packed-row shape, highest and
+             bf16, beside read_conv_reduce's;
+  wrapper_path  (after hybrid_path) main_path's seeded weights written as a whole-module
+             .wrapper.dnn pickle (the model under ``moeMerged``) and as
+             save_torch_checkpoint's state dict, each loaded with
+             load_scorer and main_path's genome called: records equal
+             main_path's, tf32x3 launches > 0;
+  bn_train_path  (after train_path) illumina_layer_norm on train_path's
+             shards: three SGD steps on the card and the CPU from one init
+             (losses within rtol 1e-4, running statistics within rtol 1e-4
+             / atol 1e-5), a k=2 step's statistics against the mean of its
+             two one-sub-batch steps, train_from_shards for 2 epochs and its
+             .final.ckpt called on main_path's genome, card against CPU,
+             all on the layer route;
+  demo_path  (last) python -m hello_tpu_torch.demo at its defaults on the
+             card, in-process: its precision and recall, its call's
+             launches.
 
 Then a ``kernels`` line (every route of the kernel with its launches on
 each path, error, times and bound), the nvidia-smi line, and as the last line
@@ -318,7 +349,9 @@ def kernel_phase(name, channels, seed, rates):
                   rc.fold_read_conv_weights(model.read_convolver0, route))
         run = lambda: rc.read_conv_reduce(rows, row_allele, row_valid,
                                           folded, A)
-        tf32 = route != "tf32x3"         # the route's precision allows TF32
+        # cuDNN's TF32 as the route's precision sets it: on at default only
+        # (at bf16 the convs' bf16 products stay exact in fp32 math)
+        tf32 = route == "tf32"
         plain = lambda: _plain(rows, row_allele, row_valid, folded, A, tf32)
         got = run()
         torch.cuda.synchronize()
@@ -370,9 +403,10 @@ def kernel_phase(name, channels, seed, rates):
     return lines
 
 
-def call_on_cpu(model_name, scorer, bams, fasta, out_cpu):
-    """The card's weights on the CPU (plain read-convolver version over
-    packed rows), at the precision in force: returns (records, seconds)."""
+def call_on_cpu(model_name, scorer, bams, fasta, out_cpu, regions=None):
+    """The card's weights (and batch-norm statistics) on the CPU (plain
+    read-convolver version, or the layer route, over packed rows), at the
+    precision in force: returns (records, seconds)."""
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn.moe import create_model
     from hello_tpu_torch.pipeline.call import Scorer, call_genome
@@ -382,7 +416,7 @@ def call_on_cpu(model_name, scorer, bams, fasta, out_cpu):
                                scorer.model.state_dict().items()})
     cpu_scorer = Scorer(cpu_model, device="cpu", packed_conv=True)
     t0 = time.perf_counter()
-    call_genome(bams, fasta, cpu_scorer, out_cpu)
+    call_genome(bams, fasta, cpu_scorer, out_cpu, regions=regions)
     return read_vcf(out_cpu), time.perf_counter() - t0
 
 
@@ -536,7 +570,46 @@ def hybrid_path_phase(workdir):
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1]})
-    return launches
+    return launches, ds
+
+
+def check_bf16(card, cpu_bf16, cpu_highest, what):
+    """Hold the card's bf16 records to the CPU's bf16 records of the same
+    weights; returns (card against CPU, the CPU's bf16 against its highest).
+
+    Two bf16 runs whose fp32 sums are taken in different orders (the
+    kernel's mma.sync and cuDNN against the CPU's convs) round some sums to
+    neighbouring bf16 values, and each such sum moves the later convs of its
+    allele: those sites sit as far apart as bf16 sits from fp32.  So the
+    card and the CPU at bf16 must agree on every site and nearly every
+    genotype, sit at most two bf16-from-fp32 distances apart at the worst
+    site, and at the median site at most half of one."""
+    import numpy as np
+
+    from hello_tpu_torch.pipeline.precision_sweep import compare
+
+    if not card:
+        raise AssertionError(f"{what}: the card's bf16 VCF is empty")
+    site_flips, gt_flips, dq = compare(card, cpu_bf16)
+    _, _, dq_cpu = compare(cpu_highest, cpu_bf16)
+    gt_bar = 0.002 * len(card)
+    if (site_flips or gt_flips > gt_bar or not len(dq)
+            or dq.max() > 2 * dq_cpu.max()
+            or np.median(dq) > 0.5 * np.median(dq_cpu)):
+        raise AssertionError(
+            f"{what}: card bf16 against CPU bf16: {site_flips} site flips, "
+            f"{gt_flips} genotype flips (at most {gt_bar}), dQ max "
+            f"{dq.max() if len(dq) else None} (at most 2 x "
+            f"{dq_cpu.max() if len(dq_cpu) else None}), median "
+            f"{np.median(dq) if len(dq) else None} (at most 0.5 x "
+            f"{np.median(dq_cpu) if len(dq_cpu) else None})")
+    return ({"site_flips": site_flips, "genotype_flips": gt_flips,
+             "qual_delta_max": float(dq.max()),
+             "qual_delta_median": float(np.median(dq)),
+             "qual_delta_over_0.05": int((dq > 0.05).sum())},
+            {"qual_delta_max": float(dq_cpu.max()),
+             "qual_delta_median": float(np.median(dq_cpu)),
+             "qual_delta_over_0.05": int((dq_cpu > 0.05).sum())})
 
 
 def parallel_path_phase(workdir):
@@ -598,8 +671,6 @@ def parallel_path_phase(workdir):
                 bf16_scorer = scorer
     # the bf16 weights on the CPU, in-process, at bf16 and at highest
     card = legs["bf16"]["records"]
-    if not card:
-        raise AssertionError("the card's bf16 VCF is empty")
     cpu, cpu_s = {}, {}
     for precision in ("bf16", "highest"):
         set_precision(precision)
@@ -607,26 +678,8 @@ def parallel_path_phase(workdir):
             "illumina", bf16_scorer, bam, ds.fasta,
             os.path.join(workdir, f"cpu_{precision}.vcf"))
     set_precision("highest")
-    site_flips, gt_flips, dq = compare(card, cpu["bf16"])
-    _, _, dq_cpu = compare(cpu["highest"], cpu["bf16"])
-    # Two bf16 runs whose fp32 sums are taken in different orders (the
-    # kernel's mma.sync and cuDNN against the CPU's convs) round some sums
-    # to neighbouring bf16 values, and each such sum moves the later convs
-    # of its allele: those sites sit as far apart as bf16 sits from fp32.
-    # So the card and the CPU at bf16 must agree on every site and nearly
-    # every genotype, sit at most two bf16-from-fp32 distances apart at the
-    # worst site, and at the median site at most half of one.
-    gt_bar = 0.002 * len(card)
-    if (site_flips or gt_flips > gt_bar or not len(dq)
-            or dq.max() > 2 * dq_cpu.max()
-            or np.median(dq) > 0.5 * np.median(dq_cpu)):
-        raise AssertionError(
-            f"card bf16 against CPU bf16: {site_flips} site flips, "
-            f"{gt_flips} genotype flips (at most {gt_bar}), dQ max "
-            f"{dq.max() if len(dq) else None} (at most 2 x "
-            f"{dq_cpu.max() if len(dq_cpu) else None}), median "
-            f"{np.median(dq) if len(dq) else None} (at most 0.5 x "
-            f"{np.median(dq_cpu) if len(dq_cpu) else None})")
+    card_vs_cpu, cpu_bf16_vs_highest = check_bf16(
+        card, cpu["bf16"], cpu["highest"], "parallel_path")
     sweep = {}
     for precision in ("bf16", "default"):
         sf, gf, d = compare(legs["highest"]["records"],
@@ -644,17 +697,10 @@ def parallel_path_phase(workdir):
                       "windows_per_s": leg["sites"] / leg["seconds"]}
                    for p, leg in legs.items()},
           "cpu_seconds": cpu_s, "cpu_records": len(cpu["bf16"]),
-          "card_vs_cpu_bf16": {"site_flips": site_flips,
-                               "genotype_flips": gt_flips,
-                               "qual_delta_max": float(dq.max()),
-                               "qual_delta_median": float(np.median(dq)),
-                               "qual_delta_over_0.05": int((dq > 0.05).sum())},
-          "cpu_bf16_vs_cpu_highest": {
-              "qual_delta_max": float(dq_cpu.max()),
-              "qual_delta_median": float(np.median(dq_cpu)),
-              "qual_delta_over_0.05": int((dq_cpu > 0.05).sum())},
+          "card_vs_cpu_bf16": card_vs_cpu,
+          "cpu_bf16_vs_cpu_highest": cpu_bf16_vs_highest,
           "card_sweep_vs_highest": sweep})
-    return launches
+    return launches, ds
 
 
 def _swap_check(trained, sites):
@@ -1238,6 +1284,458 @@ def dryrun_phase():
     return by_route["tf32x3"]
 
 
+VARIANT_CONFIGS = ("illumina_wide", "illumina_addendum", "illumina_layer_norm",
+                   "hybrid_no_ensemble_wide", "hybrid_no_ensemble_addendum")
+# the configs_path genomes: main_path's 300 kb Illumina genome for the
+# single-tech configs, the first 100 kb of hybrid_path's for the hybrid
+# ones (each CPU leg about 10 s on 8 cores); the configs also run at bf16
+# take parallel_path's 600 kb genome, the size its bf16 bars were set at
+# (0.2% of its records allows one genotype flip; about 20 s for
+# illumina_wide's CPU leg at highest)
+CONFIGS_HYBRID_REGION_BP = 100_000
+CONFIGS_BF16 = ("illumina_wide", "illumina_layer_norm")
+# featurized sites of the bf16 per-layer check
+LAYER_CHECK_SITES = 64
+# the read convolvers of the variant configs (the hybrid ones repeat these)
+LAYER_ROUTE_NETS = ("illumina_wide", "illumina_addendum",
+                    "illumina_layer_norm")
+
+
+def conv_macs_per_row(seq, channels):
+    """Multiply-adds of a read convolver's convs for one read row, counted
+    from the shapes its layers give a [1, 150, C] row."""
+    import torch
+
+    from hello_tpu_torch.nn import layers as L
+
+    macs = []
+
+    def hook(module, inputs, out):
+        co, l_out = out.shape[2], out.shape[1]
+        macs.append(co * module.in_channels // module.groups
+                    * module.kernel_size * l_out)
+
+    handles = [m.register_forward_hook(hook) for m in seq.modules()
+               if isinstance(m, L._ConvBase)]
+    try:
+        with torch.no_grad():
+            seq.cpu()(torch.zeros(1, 150, channels))
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(macs)
+
+
+def layer_route_ms(kernel_line):
+    """The layer route's read convolver + per-allele sum on the card, by
+    CUDA events, at the kernel phase's packed-row shape (C = 6, seed 0), at
+    highest and bf16, for each variant read convolver; beside
+    read_conv_reduce's ms for illumina (the yardstick a kernel variant must
+    beat).  Each bound takes the peak of the math the route's cuDNN convs
+    run at that precision (fp32 with cuDNN's TF32 off, TF32 with it on),
+    not that of a bf16 kernel variant."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.nn.moe import create_model
+
+    rows, row_allele, row_valid, A, _ = kernel_inputs(
+        np.random.RandomState(0), 6, "cuda")
+    batch = {"rows0": rows, "row_allele0": row_allele,
+             "row_valid0": row_valid,
+             "read_mask0": torch.zeros((A, 1), device=rows.device)}
+    computed = int(((row_valid != 0) & (row_allele < A)).sum().item())
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    out = {}
+    for name in LAYER_ROUTE_NETS:
+        model = init_params(create_model(name),
+                            torch.Generator().manual_seed(0))
+        flop = 2.0 * conv_macs_per_row(model.read_convolver0, 6) * computed
+        model = model.to(rows.device).eval()
+        line = {"gflop": flop / 1e9}
+        for precision in ("highest", "bf16"):
+            set_precision(precision)
+            peak = "tf32" if torch.backends.cudnn.allow_tf32 else "fp32"
+            with torch.inference_mode():
+                ms = time_ms(lambda: model._read_reduce_layers(batch, 0), 3)
+            line[f"{precision}_ms"] = ms
+            line[f"{precision}_bound_ms"] = 1e3 * flop / peaks[peak]
+            line[f"{precision}_bound_peak"] = peak
+        set_precision("highest")
+        out[name] = line
+        del model
+        torch.cuda.empty_cache()
+    out["illumina_read_conv_reduce"] = {
+        "highest_ms": kernel_line["tf32x3"]["ms"],
+        "bf16_ms": kernel_line["bf16"]["ms"],
+        "highest_bound_ms": kernel_line["tf32x3"]["bound_ms"],
+        "bf16_bound_ms": kernel_line["bf16"]["bound_ms"]}
+    return out
+
+
+def bf16_layers_card_vs_cpu(name, card_model, ds):
+    """The bf16 cast points on the card, layer by layer: every layer of
+    every network of ``card_model``, fed the CPU's own bf16 input to that
+    layer (recorded from a CPU forward of the same weights on featurized
+    sites of ``ds``), gives the CPU's output: bf16 where the CPU's is bf16,
+    equal but for at most 0.2% of the values, each within two bf16 ulps of
+    the layer's largest value (a conv sum that two fp32 orders round to
+    neighbouring bf16 values, and what that moves inside the layer), as
+    tests/test_torch_precision.py holds the port to hello_tpu.  Where no
+    cascade can form, this tells a wrong cast point from the chaos of whole
+    bf16 forwards.  fp32 outputs (Linear logits: TF32 on the card) are
+    reported, not held.  Returns the worst layer's numbers."""
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.pipeline.bf16_conv_check import (featurized_batch,
+                                                          layers_against_cpu)
+
+    batch, sites = featurized_batch(ds, LAYER_CHECK_SITES)
+    cpu_model = create_model(name)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_model.state_dict().items()})
+    cpu_model.eval()
+    worst = {"differ_share": 0.0, "max_diff_over_layer_max": 0.0,
+             "fp32_max_rel": 0.0, "sites": sites}
+    for line in layers_against_cpu(cpu_model, card_model, batch):
+        what = f"{name} {line['net']} layer {line['layer']} ({line['type']})"
+        if "fp32_max_rel" in line:
+            worst["fp32_max_rel"] = max(worst["fp32_max_rel"],
+                                        line["fp32_max_rel"])
+            continue
+        share, diff = line["differ_share"], line["max_diff_over_layer_max"]
+        if line["card_dtype"] != "torch.bfloat16" or share > 0.002 \
+                or diff > 2.0 ** -6:
+            raise AssertionError(
+                f"{what}: card {line['card_dtype']}, {share:.4%} of values "
+                f"differ from the CPU's, largest by {diff:.3e} of the "
+                f"layer's largest (at most 0.2%, two bf16 ulps: 2^-6)")
+        worst["differ_share"] = max(worst["differ_share"], share)
+        worst["max_diff_over_layer_max"] = max(
+            worst["max_diff_over_layer_max"], diff)
+    return worst
+
+
+def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
+    """The five variant configs at full width with seeded weights, on the
+    layer route (no kernel launch), called on the card and on the CPU at
+    highest and held as main_path holds them; illumina_wide and
+    illumina_layer_norm also at bf16, held as parallel_path holds bf16;
+    then the layer route's read-convolver ms at the kernel phase's shape."""
+    import torch
+
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn import moe
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
+
+    os.makedirs(workdir)
+    t_phase = time.perf_counter()
+    lines = {}
+    for name in VARIANT_CONFIGS:
+        hybrid = name.startswith("hybrid")
+        genome = ds
+        if hybrid:
+            bams = [hybrid_ds.bams["illumina"], hybrid_ds.bams["pacbio"]]
+            fasta = hybrid_ds.fasta
+            regions = [(hybrid_ds.chromosome, 0, CONFIGS_HYBRID_REGION_BP)]
+            where = f"hybrid_path's, first {CONFIGS_HYBRID_REGION_BP} bp"
+        else:
+            genome = parallel_ds if name in CONFIGS_BF16 else ds
+            bams, fasta, regions = [genome.bams["illumina"]], genome.fasta, None
+            where = ("parallel_path's" if name in CONFIGS_BF16
+                     else "main_path's") + ", whole"
+        line = {"genome": where}
+        cpu_highest = None
+        for precision in (("highest", "bf16") if name in CONFIGS_BF16
+                          else ("highest",)):
+            set_precision(precision)
+            scorer = load_scorer(name, seed=0)              # cuda
+            routes = scorer.read_conv_routes()
+            if set(routes.values()) != {"layers"} or \
+                    len(routes) != (2 if hybrid else 1):
+                raise AssertionError(f"{name}: read convolver routes {routes}")
+            out_card = os.path.join(workdir, f"{name}_{precision}_card.vcf")
+            stats = {}
+            rc.reset_launches()
+            moe.reset_layer_route_calls()
+            t0 = time.perf_counter()
+            call_genome(bams, fasta, scorer, out_card, regions=regions,
+                        stats=stats)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            calls = dict(moe.layer_route_calls)
+            if rc.read_conv_reduce.launches or \
+                    min(calls[k] for k in routes) <= 0:
+                raise AssertionError(
+                    f"{name} at {precision}: read_conv_reduce launched "
+                    f"{rc.read_conv_reduce.launches_by_route}, layer route "
+                    f"calls {calls}")
+            card = read_vcf(out_card)
+            cpu, cpu_s = call_on_cpu(
+                name, scorer, bams, fasta,
+                os.path.join(workdir, f"{name}_{precision}_cpu.vcf"), regions)
+            leg = {"sites": stats["sites"], "records": len(card),
+                   "seconds": card_s,
+                   "windows_per_s": stats["sites"] / card_s,
+                   "layer_route_calls": calls, "cpu_seconds": cpu_s}
+            if precision == "highest":
+                # seeded weights give some of these configs confident calls
+                # (Q50 and up), where 1 - p moves by the decode's resolution
+                decode_steps = []
+                worst = compare_records(card, cpu, decode_steps=decode_steps)
+                cpu_highest = cpu
+                leg.update(records_equal=True, max_qual_diff=worst[0],
+                           qual_at_max_diff=worst[1],
+                           quals_within_one_decode_step=len(decode_steps))
+            else:
+                leg["layers_card_vs_cpu"] = bf16_layers_card_vs_cpu(
+                    name, scorer.model, genome)
+                leg["card_vs_cpu_bf16"], leg["cpu_bf16_vs_cpu_highest"] = \
+                    check_bf16(card, cpu, cpu_highest, f"{name} bf16")
+            line[precision] = leg
+        set_precision("highest")
+        lines[name] = line
+    layer_ms = layer_route_ms(kernel_line)
+    emit({"phase": "configs_path", "configs": lines,
+          "layer_route_read_conv_ms": layer_ms,
+          "seconds": time.perf_counter() - t_phase})
+    return lines
+
+
+def _wrapper_class():
+    """A stand-in for the reference's MoEMergedWrapperAdvanced (the model
+    under ``moeMerged``), defined at first use (torch is imported late) and
+    registered under this module's name, so a whole-module pickle of it
+    loads in this process."""
+    import torch
+
+    if "MoEMergedWrapper" not in globals():
+        class MoEMergedWrapper(torch.nn.Module):
+            def __init__(self, model):
+                super().__init__()
+                self.moeMerged = model
+
+        MoEMergedWrapper.__module__ = __name__
+        MoEMergedWrapper.__qualname__ = "MoEMergedWrapper"
+        globals()["MoEMergedWrapper"] = MoEMergedWrapper
+    return globals()["MoEMergedWrapper"]
+
+
+def wrapper_path_phase(workdir, ds, card):
+    """main_path's seeded illumina weights as a whole-module .wrapper.dnn
+    pickle and as save_torch_checkpoint's state dict, each loaded with
+    load_scorer and main_path's genome called on the card: records as
+    main_path's (the same weights built directly).  Returns the tf32x3
+    launches."""
+    import torch
+
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.export import save_torch_checkpoint
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
+
+    os.makedirs(workdir)
+    set_precision("highest")
+    model = init_params(create_model("illumina"),
+                        torch.Generator().manual_seed(0))   # main_path's
+    files = {"wrapper_dnn": os.path.join(workdir, "illumina.wrapper.dnn"),
+             "state_dict_pt": os.path.join(workdir, "illumina.pt")}
+    torch.save(_wrapper_class()(model), files["wrapper_dnn"])
+    save_torch_checkpoint(files["state_dict_pt"], model)
+    legs, total = {}, 0
+    t_phase = time.perf_counter()
+    for kind, path in files.items():
+        scorer = load_scorer("illumina", path)              # cuda
+        if scorer.read_conv_routes() != {"read_conv0": "tf32x3"}:
+            raise AssertionError(f"{kind}: {scorer.read_conv_routes()}")
+        out = os.path.join(workdir, f"{kind}.vcf")
+        rc.reset_launches()
+        t0 = time.perf_counter()
+        call_genome([ds.bams["illumina"]], ds.fasta, scorer, out)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        by_route = dict(rc.read_conv_reduce.launches_by_route)
+        if by_route["tf32x3"] <= 0 or sum(by_route.values()) != by_route["tf32x3"]:
+            raise AssertionError(f"{kind}: the call launched {by_route}")
+        decode_steps = []
+        worst = compare_records(read_vcf(out), card, decode_steps=decode_steps)
+        total += by_route["tf32x3"]
+        legs[kind] = {"file_mb": os.path.getsize(path) / 1e6,
+                      "seconds": seconds, "launches_by_route": by_route,
+                      "records_equal_main_path": True,
+                      "max_qual_diff": worst[0],
+                      "quals_within_one_decode_step": len(decode_steps)}
+    emit({"phase": "wrapper_path", "model": "illumina", "legs": legs,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+def bn_train_path_phase(workdir, shards, ds):
+    """illumina_layer_norm (batch norm in its xattn terminus) trained on
+    train_path's shards: the first three steps on the card and the CPU;
+    one k=2 step against the mean of its two one-sub-batch steps;
+    train_from_shards for 2 epochs, its .final.ckpt called on main_path's
+    genome, card against CPU.  Every read convolver call takes the layer
+    route."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.io.vcf import read_vcf
+    from hello_tpu_torch.nn import moe
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
+    from hello_tpu_torch.train.cli import train_from_shards
+    from hello_tpu_torch.train.loader import SiteDataset, device_batches
+    from hello_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    name = "illumina_layer_norm"
+    os.makedirs(workdir)
+    set_precision("highest")
+    t_phase = time.perf_counter()
+    fixed = {"read_bucket": 64, "allele_bucket": 64, "site_bucket": 32}
+
+    def batches(k):
+        return device_batches(SiteDataset(shards[1:], 1000, shuffle=True,
+                                          seed=13), False, k, 64,
+                              fixed_shape=fixed, wire=True)
+
+    # the first steps from the same seeded init, SGD: Adam's division by a
+    # running RMS turns gradient entries at fp32 noise into parameter moves
+    # that reach the next steps' statistics (tests/test_torch_bn_train.py)
+    first = [b for _, b in zip(range(3), batches(1))]
+    losses, stats = {}, {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(create_model(name),
+                          TrainConfig(lr=1e-3, binary=True, optimizer="SGD"),
+                          device=device)
+        losses[device] = [trainer.train_batch(b)["loss"] for b in first]
+        stats[device] = [t.cpu().numpy() for t in trainer.stats]
+    stat_diff = max(float(np.abs(a - b).max())
+                    for a, b in zip(stats["cuda"], stats["cpu"]))
+    if not (np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0)
+            and len(stats["cuda"]) == 2
+            and all(np.allclose(a, b, rtol=1e-4, atol=1e-5)
+                    for a, b in zip(stats["cuda"], stats["cpu"]))):
+        raise AssertionError(f"{name} first steps: losses {losses}, running "
+                             f"statistics max |diff| {stat_diff}")
+
+    # k=2: each sub-batch from the step's old statistics, then their mean
+    stacked = next(iter(batches(2)))
+    two = Trainer(create_model(name), TrainConfig(binary=True),
+                  device="cuda", num_devices=2)
+    two.train_batch(stacked)
+    singles = []
+    for i in range(2):
+        one = Trainer(create_model(name), TrainConfig(binary=True),
+                      device="cuda")
+        one.train_batch({k: v[i:i + 1] for k, v in stacked.items()})
+        singles.append([t.cpu().numpy() for t in one.stats])
+    mean = [(a + b) / 2 for a, b in zip(*singles)]
+    k2_diff = max(float(np.abs(t.cpu().numpy() - m).max())
+                  for t, m in zip(two.stats, mean))
+    if not all(np.allclose(t.cpu().numpy(), m, rtol=1e-5, atol=1e-6)
+               for t, m in zip(two.stats, mean)):
+        raise AssertionError(f"{name} k=2 statistics {k2_diff} from the mean "
+                             "of the two sub-batch steps")
+
+    prefix = os.path.join(workdir, "model")
+    rc.reset_launches()
+    moe.reset_layer_route_calls()
+    t0 = time.perf_counter()
+    trainer = train_from_shards(shards, name, prefix, num_epochs=2,
+                                device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    validation = dict(moe.layer_route_calls)
+    if rc.read_conv_reduce.launches or validation["read_conv0"] <= 0:
+        raise AssertionError(f"{name} training: validation took the layer "
+                             f"route {validation} times, the kernel "
+                             f"{rc.read_conv_reduce.launches_by_route}")
+    with open(prefix + ".metrics.jsonl") as fh:
+        epochs = [json.loads(line) for line in fh]
+
+    scorer = load_scorer(name, prefix + ".final.ckpt")      # cuda
+    bn = scorer.model.xattn0.network[-2]
+    if not (bn.running_var != 1).any():
+        raise AssertionError("the checkpoint's running statistics did not "
+                             "reach the scorer")
+    out_card = os.path.join(workdir, "card.vcf")
+    stats_call = {}
+    rc.reset_launches()
+    moe.reset_layer_route_calls()
+    t0 = time.perf_counter()
+    call_genome([ds.bams["illumina"]], ds.fasta, scorer, out_card,
+                stats=stats_call)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    calls = dict(moe.layer_route_calls)
+    if rc.read_conv_reduce.launches or calls["read_conv0"] <= 0:
+        raise AssertionError(f"{name} call: layer route {calls}, kernel "
+                             f"{rc.read_conv_reduce.launches_by_route}")
+    card = read_vcf(out_card)
+    cpu, cpu_s = call_on_cpu(name, scorer, [ds.bams["illumina"]], ds.fasta,
+                             os.path.join(workdir, "cpu.vcf"))
+    decode_steps = []
+    worst = compare_records(card, cpu, decode_steps=decode_steps)
+    emit({"phase": "bn_train_path", "model": name,
+          "first_losses": losses, "first_losses_rtol": 1e-4,
+          "first_stats_max_abs_diff": stat_diff,
+          "stats_bar": "rtol 1e-4, atol 1e-5",
+          "k2_stats_vs_mean_max_abs": k2_diff,
+          "steps": trainer.step, "train_seconds": train_s,
+          "epoch_metrics": epochs, "validation_layer_route_calls": validation,
+          "sites": stats_call["sites"], "records": len(card),
+          "call_seconds": card_s,
+          "windows_per_s": stats_call["sites"] / card_s,
+          "layer_route_calls": calls, "cpu_seconds": cpu_s,
+          "records_equal": True, "max_qual_diff": worst[0],
+          "quals_within_one_decode_step": len(decode_steps),
+          "seconds": time.perf_counter() - t_phase})
+
+
+def demo_path_phase(workdir):
+    """python -m hello_tpu_torch.demo at its defaults on the card, in this
+    process (so its launches count): the JSON summary with precision and
+    recall; returns the tf32x3 launches of its call."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hello_tpu_torch import demo
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.ops import read_conv as rc
+
+    set_precision("highest")
+    rc.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc_ = demo.main(["--outdir", workdir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    by_route = dict(rc.read_conv_reduce.launches_by_route)
+    text = buf.getvalue()
+    summary = json.loads(text[text.index("{"):])
+    metrics = summary["metrics"]
+    if (rc_ != 0 or "precision" not in metrics or "recall" not in metrics
+            or by_route["tf32x3"] <= 0
+            or sum(by_route.values()) != by_route["tf32x3"]):
+        raise AssertionError(f"demo: exit {rc_}, {summary}, launches "
+                             f"{by_route}")
+    emit({"phase": "demo_path", "seconds": seconds, "metrics": metrics,
+          "launches_by_route": by_route})
+    return by_route["tf32x3"]
+
+
 def main():
     import torch
 
@@ -1258,20 +1756,28 @@ def main():
              kernel_phase("pacbio_hp", 7, seed=1, rates=rates)]
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as workdir:
         launches, ds, card = main_path_phase(os.path.join(workdir, "illumina"))
-        hybrid = hybrid_path_phase(os.path.join(workdir, "hybrid"))
-        parallel = parallel_path_phase(os.path.join(workdir, "parallel"))
+        hybrid, hybrid_ds = hybrid_path_phase(os.path.join(workdir, "hybrid"))
+        wrapper = wrapper_path_phase(os.path.join(workdir, "wrapper"), ds,
+                                     card)
+        parallel, parallel_ds = parallel_path_phase(
+            os.path.join(workdir, "parallel"))
+        configs_path_phase(os.path.join(workdir, "configs"), ds, hybrid_ds,
+                           parallel_ds, lines[0])
         trained, validation, shards = train_path_phase(
             os.path.join(workdir, "train"))
+        bn_train_path_phase(os.path.join(workdir, "bn_train"), shards, ds)
         ddp = ddp_path_phase(os.path.join(workdir, "ddp"), shards)
         traced = trace_path_phase(os.path.join(workdir, "trace"), ds, card)
         dryrun = dryrun_phase()
+        demo = demo_path_phase(os.path.join(workdir, "demo"))
     by_path = {
         "tf32x3": {"main_path": launches, "hybrid_path": hybrid,
+                   "wrapper_path": wrapper,
                    "parallel_path_highest": parallel["tf32x3"],
                    "train_path": trained,
                    "train_path_validation": validation,
                    "ddp_path_validation": ddp, "trace_path": traced,
-                   "dryrun": dryrun},
+                   "dryrun": dryrun, "demo_path": demo},
         "tf32": {"parallel_path_default": parallel["tf32"]},
         "bf16": {"parallel_path": parallel["bf16"]},
     }

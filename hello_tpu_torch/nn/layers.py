@@ -10,27 +10,30 @@ writes:
   * ``WeightNormedConv1d`` / ``WeightNormedLinear`` keep ``conv1d.`` /
     ``linear.`` prefixes with ``weight_v``, ``weight_g`` and ``bias``;
   * ``ResidualBlock`` holds ``ffNetwork`` and ``shNetwork``; ``Fork`` holds
-    ``net<i>``.
+    ``net<i>``; ``Inception`` holds ``branch<i>``;
+  * ``BatchNorm1d`` keeps ``weight`` / ``bias`` and the buffers
+    ``running_mean`` / ``running_var`` / ``num_batches_tracked``;
+    ``LayerNormModule`` keeps ``normer.weight`` / ``normer.bias``.
 
 So ``model.load_state_dict(sd, strict=True)`` is the weight bridge.
 
 Public activations stay NWC ``[batch, length, channels]`` as in the JAX
-package; the conv modules transpose to torch's NCW internally.  The layers
-of the weight-normed single-tech and hybrid configs are ported;
-``build_network`` raises ``NotImplementedError`` for the others.
+package; the conv modules transpose to torch's NCW internally.  Every layer
+type hello_tpu builds is ported; ``build_network`` raises ``ValueError``
+for an unknown one.  Train-mode batch-norm statistics are weighted by the
+row mask of ``bn_batch_mask`` (hello_tpu's ``set_bn_batch_mask``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-#: ROADMAP item named by the errors for the layers this slice does not port.
-ROADMAP_LAYERS = "ROADMAP.md Queue 1 item 1 (layers not yet ported)"
 
 #: the precisions of hello_tpu's set_precision
 PRECISIONS = ("highest", "high", "default", "bf16")
@@ -38,11 +41,16 @@ PRECISIONS = ("highest", "high", "default", "bf16")
 #: Matmul/conv precision, one of PRECISIONS.  "highest" and "high" are fp32
 #: math (TF32 off in cuBLAS and cuDNN; the read-conv kernel's 3xTF32 route);
 #: "default" allows single-pass TF32, what XLA's DEFAULT means on a GPU (the
-#: kernel's 1xTF32 route); "bf16" additionally carries conv activations in
-#: bfloat16 (the kernel's bf16 route): a conv rounds its fp32 input and its
-#: weight to bf16, accumulates in fp32, adds the fp32 bias and rounds the
-#: result to bf16 once.  Linear outputs (the expert logits) stay fp32.
-#: Switch with set_precision().
+#: kernel's 1xTF32 route); "bf16" carries conv activations in bfloat16 (the
+#: kernel's bf16 route): a conv rounds its fp32 input and its weight to
+#: bf16, multiplies them exactly, accumulates in fp32, adds the fp32 bias
+#: and rounds the result to bf16 once.  Its Linear layers may take TF32
+#: (cuBLAS), as at "default"; its convs run with cuDNN's TF32 off: cuDNN's
+#: TF32 kernels keep those products exact but sum them less accurately than
+#: its fp32 kernels, and round more outputs to the other bf16 neighbour
+#: (python -m hello_tpu_torch.pipeline.bf16_conv_check).
+#: Linear outputs (the expert logits) stay fp32.  Switch with
+#: set_precision().
 PRECISION = "highest"
 
 #: Conv activation dtype; None keeps float32 activations.
@@ -52,23 +60,26 @@ ACT_DTYPE = None
 def set_precision(precision: str):
     """Set the global matmul/conv precision, as hello_tpu's set_precision:
     'highest' / 'high' (fp32 math, TF32 off), 'default' (TF32 allowed in
-    cuBLAS and cuDNN) or 'bf16' (TF32 allowed, bf16 conv activations)."""
+    cuBLAS and cuDNN) or 'bf16' (bf16 conv activations; TF32 allowed in
+    cuBLAS, not in cuDNN, whose fp32 kernels sum the exact products of the
+    convs' bf16-valued operands more accurately than its TF32 kernels)."""
     global PRECISION, ACT_DTYPE
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} is not one of "
                          f"{', '.join(PRECISIONS)}")
     ACT_DTYPE = torch.bfloat16 if precision == "bf16" else None
     PRECISION = precision
-    tf32 = precision in ("default", "bf16")
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision in ("default", "bf16")
+    torch.backends.cudnn.allow_tf32 = precision == "default"
 
 
 def conv1d_bf16(x, w, b, stride=1, padding=0, dilation=1, groups=1):
     """[N, Ci, L] x [Co, Ci/g, K] conv of bf16-valued fp32 tensors: every
-    product is exact, the sum is taken in fp32, the fp32 bias is added after
-    and the result is left unrounded (fp32).  The bf16 activation route of
-    every conv, in the layers and in the read-conv kernel's plain version."""
+    product is exact, the sum is taken in fp32 (``set_precision("bf16")``
+    keeps cuDNN's TF32 off, whose sums are less accurate), the fp32 bias
+    is added after and the result is left unrounded (fp32).  The bf16
+    activation route of every conv, in the layers and in the read-conv
+    kernel's plain version."""
     y = F.conv1d(x, w, None, stride=stride, padding=padding,
                  dilation=dilation, groups=groups)
     return y if b is None else y + b[None, :, None]
@@ -142,10 +153,11 @@ class _ConvBase(nn.Module):
 
     def _conv(self, x, w, b):
         """NWC conv.  With bf16 activations the conv runs in fp32 on
-        bf16-valued input and weight (every product exact, also in TF32 on
-        the card), the fp32 bias is added and the sum is rounded to bf16
-        once, where hello_tpu's conv accumulates in fp32 and rounds after
-        its bias (hello_tpu nn/layers.py Conv1d.apply)."""
+        bf16-valued input and weight (every product exact, summed in fp32
+        math: cuDNN's TF32 is off at bf16), the fp32 bias is added and the
+        sum is rounded to bf16 once, where hello_tpu's conv accumulates in
+        fp32 and rounds after its bias (hello_tpu nn/layers.py
+        Conv1d.apply)."""
         x = _conv_in(x)
         if x.dtype == torch.float32:
             y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride,
@@ -215,9 +227,196 @@ class WeightNormedLinear(nn.Module):
         return F.linear(x.float(), self.linear.weight(), self.linear.bias)
 
 
+_EPS_BN = 1e-5
+
+# the row mask of train-mode batch-norm statistics (bn_batch_mask), per thread
+_BN_MASK = threading.local()
+
+
+@contextlib.contextmanager
+def bn_batch_mask(mask):
+    """Weight train-mode batch-norm statistics by ``mask`` ([B] in {0, 1},
+    the batch axis of the network applied inside the block): padded rows
+    must not move the batch mean and variance.  ``None`` gives plain
+    statistics.  The counterpart of hello_tpu's ``set_bn_batch_mask``, set
+    around each network apply; the previous mask is restored on exit."""
+    saved = getattr(_BN_MASK, "mask", None)
+    _BN_MASK.mask = mask
+    try:
+        yield
+    finally:
+        _BN_MASK.mask = saved
+
+
+class BatchNorm1d(nn.Module):
+    """BatchNorm over the channel axis (last in NWC), on 2-D ``[B, C]`` or
+    3-D ``[B, L, C]`` input: biased batch statistics for the output, the
+    unbiased variance for the running update (momentum 0.1), eps 1e-5.  In
+    train mode the statistics are weighted by ``bn_batch_mask`` when its
+    length is the batch's, as hello_tpu computes them, and the running
+    buffers are updated in place (``num_batches_tracked`` counts the
+    updates); eval mode uses the running buffers.  A bf16 input is
+    normalised by one fp32 scale and shift applied in bf16."""
+
+    def __init__(self, num_features, momentum=0.1, eps=_EPS_BN):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def _batch_stats(self, x):
+        """(mean, biased var, unbiased var) over every axis but the last."""
+        dims = tuple(range(x.dim() - 1))
+        mask = getattr(_BN_MASK, "mask", None)
+        if mask is not None and mask.shape[0] == x.shape[0]:
+            m = mask.float()
+            mb = m.reshape((-1,) + (1,) * (x.dim() - 1))
+            per_row = math.prod(x.shape[1:-1])
+            count = torch.clamp(m.sum() * per_row, min=1.0)
+            xf = x.float()
+            mean = torch.sum(xf * mb, dim=dims) / count
+            var = torch.sum((xf - mean) ** 2 * mb, dim=dims) / count
+            return mean, var, var * (count / torch.clamp(count - 1.0, min=1.0))
+        # jnp.mean / jnp.var keep the input's dtype
+        mean = torch.mean(x.float(), dim=dims).to(x.dtype)
+        var = torch.var(x.float(), dim=dims, unbiased=False).to(x.dtype)
+        n = math.prod(x.shape[:-1])
+        return mean, var, var * (n / max(n - 1, 1))
+
+    def forward(self, x):
+        if self.training:
+            mean, var, unbiased = self._batch_stats(x)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean.float())
+                self.running_var.mul_(1 - m).add_(m * unbiased.float())
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        if x.dtype != torch.float32:
+            rs = torch.rsqrt(var + self.eps) * self.weight
+            return x * rs.to(x.dtype) + (self.bias - mean * rs).to(x.dtype)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def _layer_norm(x, weight, bias, eps=1e-5):
+    """LayerNorm over the last axis with hello_tpu's cast points: the
+    statistics in the input's dtype, then the fp32 affine (so a bf16 input
+    comes out fp32, as ``x * gamma`` promotes in jnp)."""
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * weight + bias
+
+
+class LayerNormModule(nn.Module):
+    """LayerNorm over channels (last axis); ``normer.weight`` /
+    ``normer.bias`` as the reference's LayerNormModule."""
+
+    def __init__(self, num_features, eps=1e-5):
+        super().__init__()
+        self.num_features = num_features
+        self.normer = nn.LayerNorm(num_features, eps=eps)
+
+    def forward(self, x):
+        return _layer_norm(x, self.normer.weight, self.normer.bias,
+                           self.normer.eps)
+
+
 class ReLU(nn.Module):
     def forward(self, x):
         return F.relu(x)
+
+
+class ELU(nn.Module):
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, self.alpha)
+
+
+class SELU(nn.Module):
+    def forward(self, x):
+        return F.selu(x)
+
+
+class Sigmoid(nn.Module):
+    def forward(self, x):
+        return torch.sigmoid(x)
+
+
+class Softplus(nn.Module):
+    """torch.nn.Softplus: ``log(1 + exp(beta x)) / beta``, and ``x`` itself
+    where ``beta x`` exceeds the threshold (the layer_norm config's
+    activation).  Computed as hello_tpu's ``jax.nn.softplus`` (jnp's
+    ``logaddexp(beta x, 0)``: ``max(beta x, 0) + log1p(exp(-|beta x|))``),
+    each step rounded to the input's dtype, so bf16 activations round where
+    hello_tpu's do (one fused rounding differs in ~15% of bf16 values)."""
+
+    def __init__(self, beta=1.0, threshold=20.0):
+        super().__init__()
+        self.beta = beta
+        self.threshold = threshold
+
+    def forward(self, x):
+        bx = self.beta * x
+        soft = torch.clamp(bx, min=0) + torch.log1p(torch.exp(-torch.abs(bx)))
+        return torch.where(bx > self.threshold, x, soft / self.beta)
+
+
+class Tanh(nn.Module):
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class Softmax(nn.Module):
+    """Softmax as ``jax.nn.softmax`` computes it: ``exp(x - max)`` over its
+    sum, each step rounded to the input's dtype (at bf16 a fused softmax
+    rounds once, some values an ulp or more away)."""
+
+    def __init__(self, dim=-1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        e = torch.exp(x - torch.amax(x, dim=self.dim, keepdim=True))
+        return e / torch.sum(e, dim=self.dim, keepdim=True)
+
+
+def dropout_with_mask(x, keep, p):
+    """Dropout with a given keep mask: kept entries divided by ``1 - p``
+    (rounded to the input's dtype first, as jnp rounds the weak-typed
+    scalar), the others 0 (hello_tpu's ``jnp.where(keep, x / (1 - p),
+    0)``)."""
+    scale = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Dropout in train mode, the identity in eval mode.  The keep mask is
+    drawn from ``generator`` (a ``torch.Generator``; the default generator
+    of the input's device when None), so it cannot match hello_tpu's
+    ``jax.random`` draw; ``dropout_with_mask`` applies a given mask."""
+
+    def __init__(self, p=0.5, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        g = self.generator
+        u = torch.rand(x.shape, generator=g,
+                       device=x.device if g is None else g.device)
+        return dropout_with_mask(x, u.to(x.device) >= self.p, self.p)
 
 
 class MaxPool1d(nn.Module):
@@ -231,6 +430,122 @@ class MaxPool1d(nn.Module):
         y = F.max_pool1d(x.transpose(1, 2), self.kernel_size, self.stride,
                          self.padding)
         return y.transpose(1, 2)
+
+
+class AvgPool1d(nn.Module):
+    """torch AvgPool1d with count_include_pad=True (divisor = kernel)."""
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride if stride is not None else kernel_size
+        self.padding = padding
+
+    def forward(self, x):
+        y = F.avg_pool1d(x.transpose(1, 2), self.kernel_size, self.stride,
+                         self.padding, count_include_pad=True)
+        return y.transpose(1, 2)
+
+
+class GlobalPool(nn.Module):
+    """Sum over the length axis (the reference's GlobalPool)."""
+
+    def forward(self, x):
+        return torch.sum(x, dim=1)
+
+
+class AdditiveLayer(nn.Module):
+    def forward(self, x):
+        return x[0] + x[1]
+
+
+class DotProduct(nn.Module):
+    """Scaled dot product of two vector batches -> [B, 1]."""
+
+    def forward(self, x):
+        a, b = x
+        return torch.sum(a * b, dim=-1, keepdim=True) / math.sqrt(a.shape[-1])
+
+
+def positional_encoding(length, feature_size, dtype=torch.float32,
+                        device=None):
+    """Sinusoidal positional encoding [length, feature_size]: the sines of
+    every position times ``10000^(-2i/feature_size)``, then the cosines
+    (concatenated, not interleaved, as the reference's PositionalEncoding)."""
+    stepper = 1.0 / (10000 ** (torch.arange(0, feature_size, 2, dtype=dtype,
+                                            device=device) / feature_size))
+    args = torch.arange(length, dtype=dtype, device=device)[:, None] \
+        * stepper[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+
+
+class MultiheadAttention(nn.Module):
+    """Bidirectional multi-head attention block over ``[B, L, E]``, with the
+    reference's quirk of applying no softmax to the scaled ``q k^T`` scores,
+    a residual LayerNorm, and a Linear+ReLU feed-forward with its own
+    residual LayerNorm.  Parameters under the reference's names: ``W_q``,
+    ``W_k``, ``W_v``, ``W_o`` (``[E, E]``, applied as ``x @ W``),
+    ``layer_norm_attn``, ``linear.0`` (a torch Linear) and
+    ``layer_norm_linear``.  The products are plain matmuls under the
+    precision's TF32 switches, hello_tpu's ``jnp.dot``; a bf16 input is
+    promoted to fp32, as ``jnp.dot`` with fp32 weights promotes it."""
+
+    def __init__(self, head_dim, n_heads, embedding_dim, add_positional=False):
+        super().__init__()
+        if n_heads * head_dim != embedding_dim:
+            raise ValueError(f"{n_heads} heads of {head_dim} do not make "
+                             f"embedding_dim {embedding_dim}")
+        self.head_dim = head_dim
+        self.n_heads = n_heads
+        self.embedding_dim = embedding_dim
+        self.add_positional = add_positional
+        e = embedding_dim
+        for name in ("W_q", "W_k", "W_v", "W_o"):
+            setattr(self, name, nn.Parameter(torch.empty(e, e)))
+        self.layer_norm_attn = nn.LayerNorm(e)
+        self.linear = nn.Sequential(nn.Linear(e, e), nn.ReLU())
+        self.layer_norm_linear = nn.LayerNorm(e)
+
+    def forward(self, x):
+        x = x.float()
+        B, L_, E = x.shape
+        if self.add_positional:
+            x = x + positional_encoding(L_, E, device=x.device)[None]
+
+        def heads(t):
+            return t.reshape(B, L_, self.n_heads, self.head_dim).transpose(1, 2)
+
+        q, k, v = (heads(x @ w) for w in (self.W_q, self.W_k, self.W_v))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / (self.head_dim ** 0.5)
+        ctx = torch.matmul(scores, v).transpose(1, 2).reshape(B, L_, E)
+        ln = self.layer_norm_attn
+        attended = _layer_norm(x + ctx @ self.W_o, ln.weight, ln.bias, ln.eps)
+        ln = self.layer_norm_linear
+        return _layer_norm(self.linear(attended) + attended, ln.weight,
+                           ln.bias, ln.eps)
+
+
+class HelloEncoder(nn.Module):
+    """A Linear embedding, then ``n_layers`` attention blocks (the first
+    adds the positional encoding) over NWC sequences (the reference's
+    HelloEncoder).  Its keys are the port's own: ``embedding`` (a torch
+    Linear, ``[embedding_dim, input_dim]``) and ``attention.<i>``."""
+
+    def __init__(self, n_layers, n_heads, input_dim, embedding_dim):
+        super().__init__()
+        self.input_dim = input_dim
+        self.embedding_dim = embedding_dim
+        self.embedding = nn.Linear(input_dim, embedding_dim)
+        self.attention = nn.ModuleList(
+            MultiheadAttention(embedding_dim // n_heads, n_heads,
+                               embedding_dim, add_positional=(i == 0))
+            for i in range(n_layers))
+
+    def forward(self, x):
+        y = self.embedding(x.float())
+        for block in self.attention:
+            y = block(y)
+        return y
 
 
 class AdaptiveAvgPool1d(nn.Module):
@@ -332,6 +647,20 @@ class Fork(nn.Module):
         return [getattr(self, f"net{i}")(x[i]) for i in range(self.num_nets)]
 
 
+class Inception(nn.Module):
+    """Parallel branches on one input, concatenated along channels."""
+
+    def __init__(self, branches: Sequence[Sequential]):
+        super().__init__()
+        self.num_branches = len(branches)
+        for i, branch in enumerate(branches):
+            self.add_module(f"branch{i}", branch)
+
+    def forward(self, x):
+        return torch.cat([getattr(self, f"branch{i}")(x)
+                          for i in range(self.num_branches)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Config interpretation
 # ---------------------------------------------------------------------------
@@ -339,20 +668,22 @@ class Fork(nn.Module):
 _SIMPLE = {
     "Noop": Noop,
     "ReLU": ReLU,
+    "ELU": ELU,
+    "SELU": SELU,
+    "Sigmoid": Sigmoid,
+    "Softplus": Softplus,
+    "Tanh": Tanh,
+    "Softmax": Softmax,
     "Flatten": Flatten,
+    "GlobalPool": GlobalPool,
     "SelectArgument": SelectArgument,
+    "AdditiveLayer": AdditiveLayer,
     "LinearCombination": LinearCombination,
+    "DotProduct": DotProduct,
+    "Dropout": Dropout,
     "AdaptiveAvgPool1d": AdaptiveAvgPool1d,
     "ConcatenateChannels": ConcatenateChannels,
     "Transposer": Transposer,
-}
-
-# layer types hello_tpu builds that this slice does not port yet
-_NOT_PORTED = {
-    "BatchNorm1d", "LayerNormModule", "ELU", "SELU", "Sigmoid", "Softplus",
-    "Tanh", "Softmax", "Dropout", "AvgPool1d", "GlobalPool",
-    "AdditiveLayer", "DotProduct", "Inception", "MultiheadAttention",
-    "HelloEncoder",
 }
 
 _KW_DROP = {"inplace"}
@@ -375,19 +706,32 @@ def build_layer(spec: dict) -> nn.Module:
         cls = Linear if ltype == "Linear" else WeightNormedLinear
         return cls(kwargs["in_features"], kwargs["out_features"],
                    bias=kwargs.get("bias", True))
-    if ltype == "MaxPool1d":
-        return MaxPool1d(kwargs["kernel_size"], stride=kwargs.get("stride"),
-                         padding=kwargs.get("padding", 0))
+    if ltype == "BatchNorm1d":
+        return BatchNorm1d(kwargs["num_features"],
+                           momentum=kwargs.get("momentum", 0.1),
+                           eps=kwargs.get("eps", _EPS_BN))
+    if ltype == "LayerNormModule":
+        return LayerNormModule(kwargs["num_features"])
+    if ltype in ("MaxPool1d", "AvgPool1d"):
+        cls = MaxPool1d if ltype == "MaxPool1d" else AvgPool1d
+        return cls(kwargs["kernel_size"], stride=kwargs.get("stride"),
+                   padding=kwargs.get("padding", 0))
     if ltype == "ResidualBlock":
         return ResidualBlock(build_network(kwargs["feedforward"]),
                              build_network(kwargs["shortcut"]))
     if ltype == "Fork":
         return Fork([build_network(a) for a in kwargs["net_args"]])
+    if ltype == "Inception":
+        return Inception([build_network(b) for b in kwargs["branches"]])
+    if ltype == "MultiheadAttention":
+        return MultiheadAttention(
+            kwargs["head_dim"], kwargs["n_heads"], kwargs["embedding_dim"],
+            add_positional=kwargs.get("add_positional", False))
+    if ltype == "HelloEncoder":
+        return HelloEncoder(kwargs["n_layers"], kwargs["n_heads"],
+                            kwargs["input_dim"], kwargs["embedding_dim"])
     if ltype in _SIMPLE:
         return _SIMPLE[ltype](**kwargs)
-    if ltype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layer {ltype!r} is not ported to torch yet ({ROADMAP_LAYERS})")
     raise ValueError(f"Unknown layer type: {ltype}")
 
 

@@ -33,9 +33,21 @@ Hybrid batches add ``reads1`` / ``read_mask1`` (dense) or ``rows1`` /
 ``row_allele1`` / ``row_valid1`` (packed); read_conv1 reduces them through
 the same kernel with its own folded weights.
 
+A read convolver the kernel does not implement (the wide, addendum and
+layer_norm configs: ``ops.read_conv.supports_read_convolver`` is false) takes
+the *layer route* in eval mode: its layer modules under ``torch.no_grad()``,
+then the per-allele sum, as hello_tpu sends the networks its Pallas kernel
+does not implement to its XLA layers.  The route is decided once per fold,
+by topology alone (``fold_read_convs``), never because a kernel failed.
+
 In train mode (``model.train()``) the read convolvers run through their
 layer modules under autograd instead, as hello_tpu's train-mode forward
 takes its layers and never its Pallas kernel; the kernel has no backward.
+Every network call sets the row mask of its batch axis for train-mode batch
+norm (``layers.bn_batch_mask``), at hello_tpu's call sites: ``row_valid`` or
+the read mask for the read convolvers, ``allele_mask`` for the allele
+passes, the xattns and combiner0, and the mask of sites holding a real
+allele for the site passes, combiner1 and the meta-expert.
 """
 
 from __future__ import annotations
@@ -50,7 +62,24 @@ from . import layers as L
 from .convert import _TORCH_ATTR
 from .layers import build_network
 from ..ops.read_conv import (fold_read_conv_weights, read_conv_reduce,
-                             route_for_precision)
+                             route_for_precision, supports_read_convolver)
+
+#: eval-mode read reductions that took the layer route, per read convolver
+#: (the kernel's launches are ``read_conv_reduce.launches_by_route``)
+layer_route_calls = {"read_conv0": 0, "read_conv1": 0}
+
+
+def reset_layer_route_calls():
+    """Set every count of ``layer_route_calls`` to 0."""
+    for name in layer_route_calls:
+        layer_route_calls[name] = 0
+
+
+class LayerRoute:
+    """``fold_read_convs``' marker for a read convolver the kernel does not
+    implement: its layer modules run under ``torch.no_grad()`` in eval
+    mode (``layer_route_calls`` counts them)."""
+    route = "layers"
 
 
 def packed_read_reduce(frames, row_allele, row_valid, num_alleles):
@@ -65,10 +94,11 @@ def packed_read_reduce(frames, row_allele, row_valid, num_alleles):
 
 
 def masked_read_sum(read_frames, read_mask):
-    """[A, R, L, C] x [A, R] -> [A, L, C]: masked sum over each allele's
-    reads (the dense twin of packed_read_reduce)."""
-    return torch.einsum("ar,arlc->alc", read_mask.to(read_frames.dtype),
-                        read_frames)
+    """[A, R, L, C] x [A, R] -> [A, L, C] float32: masked sum over each
+    allele's reads (the dense twin of packed_read_reduce); bf16 frames are
+    summed in fp32, as hello_tpu's einsum with an fp32 preferred type."""
+    return torch.einsum("ar,arlc->alc", read_mask.float(),
+                        read_frames.float())
 
 
 def site_segment_sum(allele_feats, site_onehot):
@@ -119,28 +149,40 @@ class MoEAttention(nn.Module):
         return getattr(self, _TORCH_ATTR[name], None)
 
     def fold_read_convs(self):
-        """Folded weights of each read convolver for the kernel route of the
-        precision in force (raises for a read convolver the kernel does not
-        implement).  Compute once per parameter set and precision and pass
-        to ``forward``."""
-        return {name: fold_read_conv_weights(self.net(name))
+        """Each read convolver's route for the precision in force, decided
+        by its topology alone: the kernel's folded weights
+        (``FoldedReadConv``) for the read convolver the kernel implements,
+        a ``LayerRoute`` for any other.  Compute once per parameter set and
+        precision and pass to ``forward``."""
+        return {name: (fold_read_conv_weights(net)
+                       if supports_read_convolver(net) else LayerRoute())
                 for name in ("read_conv0", "read_conv1")
-                if self.net(name) is not None}
+                if (net := self.net(name)) is not None}
+
+    def _run(self, name, x, mask):
+        """Network ``name`` on ``x``, its train-mode batch norm weighted by
+        ``mask`` (the rows of ``x``'s batch axis that are real)."""
+        with L.bn_batch_mask(mask if self.training else None):
+            return self.net(name)(x)
 
     def _compress_and_predict(self, idx, reduced_allele, site_onehot,
-                              site_ids):
+                              site_ids, allele_mask, site_mask):
         """reduced_allele [A, 36, 64] -> (expert logits [A, 1] or None,
-        (site0 [S, 18, 128], site1 [S, 18, 128]), compressed [A, 18, 128])."""
-        compressor = self.net(f"compressor{idx}")
-        ca = compressor(reduced_allele)
+        (site0 [S, 18, 128], site1 [S, 18, 128]), compressed [A, 18, 128]).
+        The compressor's allele pass updates its batch-norm statistics
+        before its site pass reads them, as hello_tpu threads them."""
+        cname = f"compressor{idx}"
+        ca = self._run(cname, reduced_allele, allele_mask)
         # site features route 1: compress the per-site sum of read frames
-        cs0 = compressor(site_segment_sum(reduced_allele, site_onehot))
+        cs0 = self._run(cname, site_segment_sum(reduced_allele, site_onehot),
+                        site_mask)
         expand0 = cs0[site_ids]
         # site features route 2: per-site sum of compressed allele features
         cs1 = site_segment_sum(ca, site_onehot)
         expand1 = cs1[site_ids]
-        xattn = self.net(f"xattn{idx}")
-        logits = None if xattn is None else xattn((ca, (expand0, expand1)))
+        xname = f"xattn{idx}"
+        logits = (None if self.net(xname) is None else
+                  self._run(xname, (ca, (expand0, expand1)), allele_mask))
         return logits, (cs0, cs1), ca
 
     @property
@@ -148,28 +190,36 @@ class MoEAttention(nn.Module):
         return self.net("meta") is not None
 
     def _read_reduce_layers(self, batch, k):
-        """Train mode: platform k's reads through the read convolver's layer
-        modules under autograd (cuDNN on the card), then the masked
-        per-allele sum, as hello_tpu's train-mode forward does; packed rows
-        or the dense ``A*R`` grid."""
-        conv = self.net(f"read_conv{k}")
+        """Platform k's reads through the read convolver's layer modules
+        (cuDNN on the card), then the masked per-allele sum, as hello_tpu's
+        layer path does; packed rows or the dense ``A*R`` grid.  Under
+        autograd in train mode; the layer route in eval mode."""
+        name = f"read_conv{k}"
         if f"rows{k}" in batch:
             A = batch[f"read_mask{k}"].shape[0]
             row_valid = batch[f"row_valid{k}"].float()
-            frames = conv(batch[f"rows{k}"].float())
+            frames = self._run(name, batch[f"rows{k}"].float(), row_valid)
             return packed_read_reduce(frames, batch[f"row_allele{k}"],
                                       row_valid, A)
         reads = batch[f"reads{k}"]
         A, R = reads.shape[:2]
-        frames = conv(reads.reshape((A * R,) + tuple(reads.shape[2:])).float())
+        mask = batch[f"read_mask{k}"].float()
+        frames = self._run(
+            name, reads.reshape((A * R,) + tuple(reads.shape[2:])).float(),
+            mask.reshape(-1))
         frames = frames.reshape((A, R) + tuple(frames.shape[1:]))
-        return masked_read_sum(frames, batch[f"read_mask{k}"].float())
+        return masked_read_sum(frames, mask)
 
     def _read_reduce(self, batch, k, folded):
         """Platform k's reads -> per-allele sum of read-convolver frames
         [A, 36, 64], packed rows or the dense grid flattened to rows."""
         if self.training:
             return self._read_reduce_layers(batch, k)
+        route = folded[f"read_conv{k}"]
+        if isinstance(route, LayerRoute):
+            layer_route_calls[f"read_conv{k}"] += 1
+            with torch.no_grad():
+                return self._read_reduce_layers(batch, k)
         if f"rows{k}" in batch:
             A = batch[f"read_mask{k}"].shape[0]
             rows = batch[f"rows{k}"]
@@ -192,15 +242,18 @@ class MoEAttention(nn.Module):
         (experts 0, 1, 2; zeros for expert 2 when the config has none).
 
         Eval mode reduces the reads through ``read_conv_reduce`` with the
-        folded weights (``folded``: ``fold_read_convs()`` output, computed
-        here when None); train mode runs the read convolvers' layers under
-        autograd and ignores ``folded``.  The ported configs hold no
-        BatchNorm and no Dropout, so both modes compute the same function."""
+        folded weights, or through the layer route (``folded``:
+        ``fold_read_convs()`` output, computed here when None); train mode
+        runs the read convolvers' layers under autograd and ignores
+        ``folded``.  A config without BatchNorm and Dropout computes the
+        same function in both modes; with them, train mode normalises by
+        the masked batch statistics and updates the running ones."""
         if not self.training:
             if folded is None:
                 folded = self.fold_read_convs()
             route = route_for_precision(L.PRECISION)
-            stale = {n: f.route for n, f in folded.items() if f.route != route}
+            stale = {n: f.route for n, f in folded.items()
+                     if f.route not in (route, LayerRoute.route)}
             if stale:
                 raise ValueError(f"read convolvers folded for routes {stale}, "
                                  f"but the precision {L.PRECISION!r} runs "
@@ -209,25 +262,29 @@ class MoEAttention(nn.Module):
         S = batch["ref_segments"].shape[0]
         site_ids = batch["site_ids"].long()
         site_onehot = make_site_onehot(site_ids, batch["allele_mask"], S)
+        # the rows of the allele and site axes that are real, for batch norm
+        masks = dict(allele_mask=batch["allele_mask"].float(),
+                     site_mask=(site_onehot.sum(dim=0) > 0).float())
         reduced0 = self._read_reduce(batch, 0, folded)
         e0, f0, ca0 = self._compress_and_predict(0, reduced0, site_onehot,
-                                                 site_ids)
+                                                 site_ids, **masks)
         if not self.hybrid:
             return {"experts": e0, "meta": None}
 
         reduced1 = self._read_reduce(batch, 1, folded)
         e1, f1, ca1 = self._compress_and_predict(1, reduced1, site_onehot,
-                                                 site_ids)
+                                                 site_ids, **masks)
         if self.net("compressor2") is not None:
             # hybrid features straight from the summed read frames
             e2, f2, _ = self._compress_and_predict(
-                2, reduced0 + reduced1, site_onehot, site_ids)
+                2, reduced0 + reduced1, site_onehot, site_ids, **masks)
             meta_site_frames = f2[0]
         elif self.net("xattn2") is not None:
             # combiner route: merge both platforms' compressed features
-            ca2 = self.combiner0((ca0, ca1))
-            cs2 = self.combiner1((f0[1], f1[1]))
-            e2 = self.xattn2((ca2, (None, cs2[site_ids])))
+            ca2 = self._run("combiner0", (ca0, ca1), masks["allele_mask"])
+            cs2 = self._run("combiner1", (f0[1], f1[1]), masks["site_mask"])
+            e2 = self._run("xattn2", (ca2, (None, cs2[site_ids])),
+                           masks["allele_mask"])
             meta_site_frames = cs2
         else:
             e2 = None
@@ -236,9 +293,9 @@ class MoEAttention(nn.Module):
 
         meta = None
         if self.net("meta") is not None:
-            meta = torch.softmax(
-                self.meta((meta_site_frames, batch["ref_segments"].float())),
-                dim=-1)
+            meta = torch.softmax(self._run(
+                "meta", (meta_site_frames, batch["ref_segments"].float()),
+                masks["site_mask"]), dim=-1)
         if e0 is None and e1 is None:
             # hybrid no-ensemble: expert 2's logit alone
             return {"experts": e2, "meta": None}
@@ -249,9 +306,10 @@ class MoEAttention(nn.Module):
 
 
 def create_model(name_or_config) -> MoEAttention:
-    """Create a model from a named config (illumina, pacbio, pacbio_hp,
-    hybrid, hybrid_no_ensemble, hybrid_ensemble2) or an explicit config
-    dict."""
+    """Create a model from a named config (any of ``archs.NAMED_CONFIGS``:
+    illumina, pacbio, pacbio_hp, hybrid, hybrid_no_ensemble,
+    hybrid_ensemble2 and the wide, addendum and layer_norm variants) or an
+    explicit config dict."""
     if isinstance(name_or_config, str):
         config = archs.NAMED_CONFIGS[name_or_config]()
     else:

@@ -39,8 +39,10 @@ becomes ``W[Co, K*Ci]`` (k-major, as hello_tpu's
 ``extract_read_conv_weights``; rounded to bf16 for the bf16 route) plus
 ``b[Co]``.  The kernel reads one flat buffer holding, per conv, ``W`` in the
 route's mma.sync A-fragment order (``pack_conv``), then ``b``.  The topology
-gate raises for a read convolver the kernel does not implement, naming the
-ROADMAP item that holds its kernel variant.
+gate (``check_read_convolver``) raises for a read convolver the kernel does
+not implement; ``supports_read_convolver`` asks the same question without
+raising, as hello_tpu's ``supports_network``, and the model runs such a
+read convolver through its layers (nn/moe.py, the layer route).
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
-#: ROADMAP item of the read convolvers the kernel does not implement yet
+#: ROADMAP item of the kernel variants for the read convolvers the kernel
+#: does not implement (the wide, addendum and layer_norm configs take the
+#: layer route until then)
 ROADMAP_VARIANTS = ("ROADMAP.md Queue 1 item 14: kernel variants of "
                     "read_conv_reduce for the wide, addendum and layer_norm "
                     "configs")
@@ -184,6 +188,17 @@ def check_read_convolver(seq: L.Sequential):
         raise ValueError(f"read convolver strides/paddings {geometry}, pools "
                          f"{pools} are not what the CUDA kernel implements "
                          f"({ROADMAP_VARIANTS})")
+
+
+def supports_read_convolver(seq: L.Sequential) -> bool:
+    """Whether ``seq`` is the read convolver the kernel implements:
+    ``check_read_convolver`` without raising (hello_tpu's
+    ``supports_network``).  Decided by topology alone."""
+    try:
+        check_read_convolver(seq)
+    except ValueError:
+        return False
+    return True
 
 
 @dataclasses.dataclass(eq=False)

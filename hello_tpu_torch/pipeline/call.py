@@ -42,6 +42,7 @@ from ..io.fasta import FastaFile
 from ..io.vcf import VcfRecord, make_record, write_vcf
 from ..nn.genotype import decode_batch
 from ..nn import layers as nn_layers
+from ..nn.archs import NAMED_CONFIGS
 from ..nn.moe import MoEAttention, create_model
 from .batching import PaddedBatch, SiteWork, group_sites_for_batching, pack_sites
 from .candidates import generate_sites
@@ -49,9 +50,6 @@ from .hotspots import (candidate_intervals, cluster_hotspots, detect_hotspots,
                        make_read_sources)
 
 logger = logging.getLogger(__name__)
-
-ROADMAP_WAITS = "ROADMAP.md Queue 1"
-
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names another device; raises when CUDA is
@@ -196,8 +194,14 @@ class Scorer:
 
     @property
     def folded(self) -> dict:
-        """The primary's folded read convolvers."""
+        """The primary's folded read convolvers (``FoldedReadConv`` for the
+        kernel, ``nn.moe.LayerRoute`` for the layer route)."""
         return self._replicas[0].folded
+
+    def read_conv_routes(self) -> Dict[str, str]:
+        """Each read convolver's route: the kernel route of the precision
+        (``tf32x3``, ``tf32`` or ``bf16``) or ``layers``."""
+        return {name: f.route for name, f in self.folded.items()}
 
     def replica_folds(self) -> List[dict]:
         """Each position's folded read convolvers (None before its first
@@ -223,9 +227,10 @@ class Scorer:
 
     @torch.no_grad()
     def _refresh(self, pos: int) -> _Replica:
-        """Position ``pos``'s replica, copied from the primary when the
-        primary changed since the last copy, and folded again when its read
-        convolvers are not those of the last fold."""
+        """Position ``pos``'s replica, copied from the primary (parameters
+        and buffers: batch-norm statistics) when the primary changed since
+        the last copy, and folded again when its read convolvers are not
+        those of the last fold."""
         generation = self._primary_generation()
         rep = self._replicas[pos]
         if rep is None:
@@ -642,23 +647,30 @@ def call_genome(bam_paths: Sequence[str], ref_path: str, scorer: Scorer,
 
 
 def load_scorer(model_name: str, checkpoint: Optional[str] = None,
-                seed: int = 0, device=None) -> Scorer:
-    """Build a Scorer from a named config: seeded random init, a torch state
-    dict (``.pt`` / ``.pth``), or a hello_tpu pytree checkpoint (numpy
-    pickle).  It scores on ``device``, or round-robin over every visible
-    card when none is named.  Reference ``.wrapper.dnn`` files wait for a
-    later slice."""
+                seed: int = 0, device=None,
+                reference_python: Optional[str] = None) -> Scorer:
+    """Build a Scorer from a named config: seeded random init, a reference
+    torch file (``.wrapper.dnn`` whole-module pickle, or a ``.pt`` /
+    ``.pth`` state dict, with or without the ``moeMerged.`` / ``module.``
+    prefix: nn/convert.load_torch_checkpoint, which imports a pickle's
+    classes from ``reference_python`` or ``PYTHONPATH``), or a hello_tpu
+    pytree checkpoint (numpy pickle).  A network the model configures and a
+    torch file lacks keeps the seeded init of ``seed`` (hello_tpu's loader
+    skips it) and is logged.  It scores on ``device``, or round-robin over
+    every visible card when none is named."""
+    from ..nn.convert import init_params
+
     devices = visible_devices() if device is None else [resolve_device(device)]
-    model = create_model(model_name)
+    # a checkpoint overwrites this init, but for a network a torch file lacks
+    model = init_params(create_model(model_name),
+                        torch.Generator().manual_seed(seed))
     if checkpoint is None:
-        from ..nn.convert import init_params
-        init_params(model, torch.Generator().manual_seed(seed))
-    elif checkpoint.endswith(".dnn"):
-        raise NotImplementedError(
-            f".wrapper.dnn checkpoints are not ported yet ({ROADMAP_WAITS})")
-    elif checkpoint.endswith((".pt", ".pth")):
-        model.load_state_dict(torch.load(checkpoint, map_location="cpu"),
-                              strict=True)
+        pass
+    elif checkpoint.endswith((".dnn", ".pt", ".pth")):
+        from ..nn.convert import load_torch_checkpoint
+        model.load_state_dict(load_torch_checkpoint(
+            checkpoint, model, reference_python=reference_python),
+            strict=True)
     else:
         from ..nn.convert import load_jax_checkpoint
         model.load_state_dict(load_jax_checkpoint(checkpoint, model),
@@ -674,13 +686,19 @@ def main(argv=None):
     parser.add_argument("--ref", required=True, help="reference FASTA")
     parser.add_argument("--out", required=True, help="output VCF path")
     parser.add_argument("--model", default="illumina",
-                        help="model config: illumina|pacbio|pacbio_hp|hybrid|"
-                             "hybrid_no_ensemble|hybrid_ensemble2")
+                        choices=sorted(NAMED_CONFIGS),
+                        help="model config (the reference's named configs)")
     parser.add_argument("--checkpoint", default=None,
-                        help="torch state dict (.pt) or hello_tpu pytree "
-                             "checkpoint; default: seeded random weights")
+                        help="reference torch file (.wrapper.dnn, .pt, .pth) "
+                             "or hello_tpu pytree checkpoint; default: "
+                             "seeded random weights")
+    parser.add_argument("--reference_python", default=None,
+                        help="the reference's python/ directory, from which "
+                             "a .wrapper.dnn pickle's classes import "
+                             "(default: PYTHONPATH)")
     parser.add_argument("--seed", type=int, default=0,
-                        help="init seed when no checkpoint is given")
+                        help="init seed when no checkpoint is given (and of "
+                             "a network a torch file lacks)")
     parser.add_argument("--region", default=None,
                         help="chrom[,start,stop]; default: whole genome")
     parser.add_argument("--pacbio", action="store_true")
@@ -757,7 +775,8 @@ def main(argv=None):
 
 def _call(parser, args, bams, regions):
     scorer = load_scorer(args.model, args.checkpoint, seed=args.seed,
-                         device=args.device)
+                         device=args.device,
+                         reference_python=args.reference_python)
     want = 2 if scorer.model.hybrid else 1
     if len(bams) != want:
         parser.error(f"--model {args.model} takes {want} BAM(s) "

@@ -165,7 +165,8 @@ def write_report(out_path, variants, rows, verdicts, card):
                  "Each precision against `--precision highest` (fp32, the "
                  "3xTF32 read-conv route, TF32 off), same weights, same "
                  "sites, production decode path.  `bf16` = bf16 conv "
-                 "activations, the bf16 read-conv route, TF32 allowed; "
+                 "activations, the bf16 read-conv route, TF32 allowed "
+                 "in cuBLAS (not cuDNN); "
                  "`default` = fp32 activations, the 1xTF32 route, TF32 "
                  "allowed.  Seconds are host wall time of one "
                  "`call_region` each, set-up included.\n\n"

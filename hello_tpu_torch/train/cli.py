@@ -31,6 +31,7 @@ import pickle
 import time
 
 from .. import telemetry
+from ..nn.archs import NAMED_CONFIGS
 from ..nn.moe import create_model
 from ..parallel import mesh
 from ..pipeline.call import resolve_device
@@ -334,7 +335,9 @@ def main(argv=None):
         description="hello_tpu_torch MoE trainer")
     parser.add_argument("--data", required=True,
                         help=".lst file of shard indices, or a glob")
-    parser.add_argument("--model", default="hybrid")
+    parser.add_argument("--model", default="hybrid",
+                        choices=sorted(NAMED_CONFIGS),
+                        help="model config (the reference's named configs)")
     parser.add_argument("--out_prefix", required=True)
     parser.add_argument("--num_epochs", type=int, default=10)
     parser.add_argument("--lr", type=float, default=1e-3)

@@ -16,6 +16,12 @@ train another model (and its hooks need ``.backward()``, which the trainer
 does not call).  Nothing waits on the host unless the caller asks for the
 loss.  Batches are dense or coded-wire (expanded on the device, labels
 carried through).
+
+Batch-norm statistics (the model's floating buffers) follow hello_tpu's
+``pmean``: every sub-batch's forward starts from the step's old statistics,
+and the step's new statistics are the mean of the sub-batches' (over the
+ranks too, through the same all-reduce), so neither the order of the
+sub-batches nor ``remat``'s second forward moves them.
 """
 
 from __future__ import annotations
@@ -232,18 +238,14 @@ class Trainer:
         else:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).train()
-        if ((num_devices > 1 or mesh.is_distributed())
-                and next(self.model.buffers(), None) is not None):
-            # hello_tpu pmeans the new state over the mesh; every ported
-            # config is stateless (batch norm is ROADMAP Queue 1 item 1)
-            raise NotImplementedError(
-                "data-parallel training of a model with state (buffers) is "
-                "not ported (ROADMAP.md Queue 1 item 1)")
         self.num_devices = num_devices
         self.config = config
         named = list(self.model.named_parameters())
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # the running batch-norm statistics (num_batches_tracked, an update
+        # count no step's math reads, is left to the forward)
+        self.stats = [b for b in self.model.buffers() if b.is_floating_point()]
         self._broadcast_params()
         self.opt = Optimizer(config, self.params)
         self.step = 0
@@ -302,32 +304,55 @@ class Trainer:
     # -- steps ----------------------------------------------------------------
 
     def _one_loss_and_grads(self, batch, reg):
+        """(loss, per-expert loss, gradients, the batch-norm statistics the
+        forward left) of one sub-batch; the statistics are read before the
+        backward, which recomputes the forward under ``remat``."""
         if self.config.remat:
             total, per_expert = torch.utils.checkpoint.checkpoint(
                 _batch_loss, self.model, self.config, batch, reg,
                 use_reentrant=False)
         else:
             total, per_expert = _batch_loss(self.model, self.config, batch, reg)
+        stats = [b.clone() for b in self.stats]
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
-        return total.detach(), per_expert.detach(), grads
+        return total.detach(), per_expert.detach(), grads, stats
+
+    @torch.no_grad()
+    def _set_stats(self, values):
+        for b, v in zip(self.stats, values):
+            b.copy_(v)
 
     def _loss_and_grads(self, device_batches, reg):
         """hello_tpu's psum'd step: the loss, per-expert losses and
-        gradients of each sub-batch summed in order, then over the ranks."""
-        total = per_expert = grads = None
+        gradients of each sub-batch summed in order, then over the ranks;
+        and its pmean'd state: the batch-norm statistics of each sub-batch,
+        every one from the step's old statistics, averaged over the
+        sub-batches and the ranks.  Leaves the model's statistics as they
+        were; returns (loss, per-expert loss, gradients, new statistics)."""
+        old = [b.clone() for b in self.stats]
+        total = per_expert = grads = stats = None
+        n = 0
         for batch in self._sub_batches(device_batches, self.num_devices):
-            t, pe, g = self._one_loss_and_grads(batch, reg)
+            self._set_stats(old)
+            t, pe, g, st = self._one_loss_and_grads(batch, reg)
+            n += 1
             if grads is None:
-                total, per_expert, grads = t, pe, g
+                total, per_expert, grads, stats = t, pe, g, st
             else:
                 total, per_expert = total + t, per_expert + pe
                 torch._foreach_add_(grads, g)
+                stats = [a + b for a, b in zip(stats, st)]
+        self._set_stats(old)
         if mesh.is_distributed():
-            summed = self._all_reduce([total.reshape(1), per_expert] + grads)
-            total, per_expert, grads = summed[0][0], summed[1], summed[2:]
-        return total, per_expert, grads
+            summed = self._all_reduce([total.reshape(1), per_expert] + grads
+                                      + stats)
+            total, per_expert = summed[0][0], summed[1]
+            grads = summed[2:2 + len(grads)]
+            stats = summed[2 + len(grads):]
+            n *= mesh.world_size()
+        return total, per_expert, grads, [t / n for t in stats]
 
     @staticmethod
     def _all_reduce(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -340,14 +365,15 @@ class Trainer:
 
     @torch.no_grad()
     def _broadcast_params(self):
-        """Inside a process group, every rank takes rank 0's parameters."""
+        """Inside a process group, every rank takes rank 0's parameters and
+        batch-norm statistics."""
         if not mesh.is_distributed():
             return
-        flat = torch.cat([p.reshape(-1) for p in self.params])
+        tensors = self.params + self.stats
+        flat = torch.cat([t.reshape(-1) for t in tensors])
         dist.broadcast(flat, src=0)
-        for p, part in zip(self.params,
-                           flat.split([p.numel() for p in self.params])):
-            p.copy_(part.view_as(p))
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
 
     def all_ranks_have(self, flag: bool) -> bool:
         """True iff every rank reports ``flag`` (parallel/mesh.all_ranks_have):
@@ -357,8 +383,8 @@ class Trainer:
     def compute_grads(self, device_batches):
         """Summed loss and gradients ({state-dict name: tensor}) without an
         optimizer update: the sub-batches', then the ranks'."""
-        total, _, grads = self._loss_and_grads(device_batches,
-                                               self._reg(self.step))
+        total, _, grads, _ = self._loss_and_grads(device_batches,
+                                                  self._reg(self.step))
         return float(total), dict(zip(self.param_names, grads))
 
     def unsharded_step_reference(self, device_batches):
@@ -372,8 +398,10 @@ class Trainer:
         while each term is O(scale)."""
         reg = self._reg(self.step)
         total, grads, scales = 0.0, None, None
+        old = [b.clone() for b in self.stats]
         for batch in self._sub_batches(device_batches):
-            t, _, g = self._one_loss_and_grads(batch, reg)
+            self._set_stats(old)
+            t, _, g, _ = self._one_loss_and_grads(batch, reg)
             total += float(t)
             gmax = [x.abs().max() for x in g]
             if grads is None:
@@ -381,6 +409,7 @@ class Trainer:
             else:
                 grads = [a + b for a, b in zip(grads, g)]
                 scales = [torch.maximum(a, b) for a, b in zip(scales, gmax)]
+        self._set_stats(old)
         return (total, dict(zip(self.param_names, grads)),
                 {n: float(s) for n, s in zip(self.param_names, scales)})
 
@@ -395,7 +424,7 @@ class Trainer:
         and on the card pinned host copies of it with the event that marks
         them written (read them with ``read_metrics``); the caller owns the
         finite check."""
-        total, per_expert, grads = self._loss_and_grads(
+        total, per_expert, grads, stats = self._loss_and_grads(
             device_batches, self._reg(self.step))
         if sync:
             loss = float(total)
@@ -409,6 +438,7 @@ class Trainer:
                     f"non-finite training loss at step {self.step}; params "
                     f"and payload dumped to {prefix}.step{self.step}.*")
         self.opt.update(grads)
+        self._set_stats(stats)
         self.step += 1
         if sync:
             return {"loss": loss, "per_expert": per_expert.cpu().tolist()}
@@ -435,7 +465,8 @@ class Trainer:
     def evaluate(self, batches: Iterable[dict]) -> float:
         """Mean validation loss over single-device batches (numpy dicts),
         through the eval forward: the read convolvers in
-        ``read_conv_reduce`` with this step's folded weights."""
+        ``read_conv_reduce`` with this step's folded weights (or the layer
+        route), batch norm with the running statistics."""
         total, count = 0.0, 0
         self.model.eval()
         try:
@@ -468,11 +499,11 @@ class Trainer:
                         extra)
 
     def restore(self, path: str):
-        """Resume the full training state (params, optimizer moments, step
-        counter) from a checkpoint; its ``extra`` dict (the data-order
-        position: epoch, batches_done, seed) is kept on
-        ``self.resume_extra`` for the training loop.  Every rank reads the
-        checkpoint; the parameters are then rank 0's."""
+        """Resume the full training state (params, batch-norm statistics,
+        optimizer moments, step counter) from a checkpoint; its ``extra``
+        dict (the data-order position: epoch, batches_done, seed) is kept
+        on ``self.resume_extra`` for the training loop.  Every rank reads
+        the checkpoint; the parameters are then rank 0's."""
         payload = load_full_checkpoint(path)
         sd = state_dict_from_jax(self.model, payload["params"],
                                  payload["state"] or {})

@@ -4,7 +4,7 @@
   * the host modules it copies stay byte-identical to hello_tpu's, so
     hello_tpu's fuzz and parity suites keep pinning what the port runs;
   * entry points default to CUDA and raise without a card;
-  * what this slice does not port raises, naming the ROADMAP item.
+  * an unported precision and an unknown layer type raise.
 """
 
 import os
@@ -65,7 +65,8 @@ def test_port_imports_without_jax_or_hello_tpu():
             "hello_tpu_torch.ops.read_conv, hello_tpu_torch.telemetry, "
             "hello_tpu_torch.train.cli, hello_tpu_torch.train.transfer, "
             "hello_tpu_torch.pipeline.dump, hello_tpu_torch.pipeline.evaluate, "
-            "hello_tpu_torch.parallel.mesh, hello_tpu_torch.entry")
+            "hello_tpu_torch.parallel.mesh, hello_tpu_torch.entry, "
+            "hello_tpu_torch.demo, hello_tpu_torch.nn.export")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -130,8 +131,11 @@ def test_unported_precision_and_layers_raise():
 
     with pytest.raises(ValueError, match="precision"):
         layers.set_precision("fp16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.build_network([{"type": "BatchNorm1d",
+    # every layer type hello_tpu builds is ported; an unknown one raises
+    layers.build_network([{"type": "BatchNorm1d",
+                           "kwargs": {"num_features": 4}}])
+    with pytest.raises(ValueError, match="Unknown layer type"):
+        layers.build_network([{"type": "GroupNorm",
                                "kwargs": {"num_features": 4}}])
 
 

@@ -224,9 +224,34 @@ def test_fold_read_convs_covers_both_platforms():
                                   "hybrid_no_ensemble_wide",
                                   "hybrid_no_ensemble_addendum",
                                   "illumina_layer_norm"])
-def test_unported_configs_raise(name):
-    """Configs whose read convolver the kernel does not implement fail,
-    naming the ROADMAP item, when the model is built or its read convolvers
-    are folded for the kernel (the Scorer folds at construction)."""
-    with pytest.raises((NotImplementedError, ValueError), match="ROADMAP"):
-        moe.create_model(name).fold_read_convs()
+def test_unported_configs_raise(rng, name):
+    """The configs whose read convolver the kernel does not implement (they
+    raised here before the layer route existed) now build, fold every read
+    convolver to the layer route, and give hello_tpu's eval forward, dense
+    and packed, within rtol 1e-4 / atol 1e-4; the kernel's plain version is
+    never called for them."""
+    jax_layers.set_precision("highest")
+    jm = jax_moe.create_model(name)
+    params, state = jm.init(jax.random.PRNGKey(5))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    tm = moe.create_model(name)
+    tm.load_state_dict(state_dict_from_jax(tm, params, state), strict=True)
+    tm.eval()
+    folded = tm.fold_read_convs()
+    assert all(isinstance(f, moe.LayerRoute) for f in folded.values())
+    assert len(folded) == (2 if tm.hybrid else 1)
+    for layout in ("dense", "packed"):
+        batch = (_hybrid_batch(rng, layout, "mixed") if tm.hybrid else
+                 (_dense_batch if layout == "dense" else _packed_batch)(rng))
+        want, _ = jm.apply(params, state,
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+        moe.reset_layer_route_calls()
+        with torch.no_grad():
+            got = tm({k: torch.from_numpy(v) for k, v in batch.items()},
+                     folded=folded)
+        assert moe.layer_route_calls == {"read_conv0": 1,
+                                         "read_conv1": int(tm.hybrid)}
+        np.testing.assert_allclose(got["experts"].numpy(),
+                                   np.asarray(want["experts"]),
+                                   rtol=1e-4, atol=1e-4)

@@ -20,6 +20,7 @@ from hello_tpu.nn import layers as jax_layers
 from hello_tpu.nn.moe import create_model as jax_create_model
 from hello_tpu.nn.moe import packed_read_reduce as jax_packed_read_reduce
 from hello_tpu.ops import read_conv as jax_rc
+from hello_tpu_torch.nn import moe
 from hello_tpu_torch.nn.convert import state_dict_from_jax
 from hello_tpu_torch.nn.moe import create_model
 from hello_tpu_torch.ops import read_conv as rc
@@ -150,13 +151,19 @@ def _padded_stem_config():
 @pytest.mark.parametrize("name", ["illumina_wide", "illumina_addendum",
                                   "padded_stem"])
 def test_topology_gate_raises(name):
-    """A read convolver the kernel does not implement is refused, not
-    routed around the kernel."""
+    """The kernel refuses a read convolver it does not implement: folding
+    its weights for the kernel raises.  The model decides the route by the
+    same gate, without raising: such a read convolver takes the layer
+    route, and the standard one the kernel."""
     tm = create_model(_padded_stem_config() if name == "padded_stem" else name)
     with pytest.raises(ValueError):
         rc.fold_read_conv_weights(tm.read_convolver0)
-    with pytest.raises(ValueError):
-        tm.fold_read_convs()
+    assert not rc.supports_read_convolver(tm.read_convolver0)
+    assert isinstance(tm.fold_read_convs()["read_conv0"], moe.LayerRoute)
+    standard = create_model("illumina")
+    assert rc.supports_read_convolver(standard.read_convolver0)
+    assert isinstance(standard.fold_read_convs()["read_conv0"],
+                      rc.FoldedReadConv)
 
 
 def test_cpu_tensors_take_the_plain_version(rng):

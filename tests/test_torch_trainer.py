@@ -300,11 +300,14 @@ def _packed(rng, A, R):
 
 
 @pytest.mark.parametrize("layout", ["dense", "packed"])
-@pytest.mark.parametrize("name", ["illumina", "hybrid"])
+@pytest.mark.parametrize("name", ["illumina", "hybrid", "illumina_layer_norm"])
 def test_train_forward_equals_eval_forward(name, layout):
-    """The ported configs hold no BatchNorm and no Dropout: the train-mode
-    forward (layers under autograd) equals the eval forward (the read-conv
-    kernel's plain version on the CPU) within the kernel's tolerance."""
+    """A config with no BatchNorm and no Dropout: the train-mode forward
+    (layers under autograd) equals the eval forward (the read-conv kernel's
+    plain version on the CPU) within the kernel's tolerance.
+    ``illumina_layer_norm``'s xattn terminus holds a BatchNorm: its train
+    forward (masked batch statistics) and eval forward (running ones)
+    differ, and each equals hello_tpu's forward in the same mode."""
     rng = np.random.RandomState(3)
     batch = ge._example_batch(rng, hybrid=name == "hybrid", A=6, R=3, S=3)
     if layout == "packed":
@@ -312,8 +315,28 @@ def test_train_forward_equals_eval_forward(name, layout):
             del batch[f"reads{k}"], batch[f"read_mask{k}"]
             batch.update({f"{key}{k}": v for key, v in
                           _packed(rng, 6, 3).items()})
-    tm = init_params(moe.create_model(name), torch.Generator().manual_seed(2))
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if name == "illumina_layer_norm":
+        jax_layers.set_precision("highest")
+        jm = jax_moe.create_model(name)
+        params, state = jm.init(jax.random.PRNGKey(2))
+        tm = moe.create_model(name)
+        tm.load_state_dict(state_dict_from_jax(
+            tm, jax.tree_util.tree_map(np.asarray, params),
+            jax.tree_util.tree_map(np.asarray, state)), strict=True)
+        jb = {k: jax.numpy.asarray(v) for k, v in batch.items()}
+        outs = {}
+        for train in (False, True):
+            want, _ = jm.apply(params, state, jb, train=train)
+            with torch.no_grad():
+                got = tm.train(train)(tb)
+            np.testing.assert_allclose(got["experts"].numpy(),
+                                       np.asarray(want["experts"]),
+                                       rtol=1e-4, atol=1e-4)
+            outs[train] = got["experts"].numpy()
+        assert np.abs(outs[True] - outs[False]).max() > 1e-2
+        return
+    tm = init_params(moe.create_model(name), torch.Generator().manual_seed(2))
     with torch.no_grad():
         want = tm.eval()(tb)
         got = tm.train()(tb)
