@@ -69,6 +69,32 @@ Phases, each printing one JSON line:
              seed-0 scorer give the trained scorer's logits within rtol 1e-4
              / atol 1e-4, and on the 80 held-out sites those logits equal
              the CPU's within the same;
+  train_path_bf16  (inside train_path) the soak's gate training
+             precision: the first three steps at bf16 on the card and the
+             CPU from one init on train_path's first batches: the first
+             step's gradients' median leaf distance from the CPU's bf16
+             within half the CPU's own bf16-against-highest distance, which
+             the card's highest gradients (the control) exceed, as do the
+             card's bf16 from its highest; the first two losses within 2x
+             the CPU's own bf16-against-highest distance at that step (or
+             1e-4 relative, the larger); the third loss a reading (Adam's
+             sign steps amplify the chaos); no launch of read_conv_reduce
+             (the layer path trains);
+  soak_path  (after train_path) the capacity soak at 600 kb: two 300 kb
+             chromosomes at 30x (120 bp reads) streamed to disk with the
+             port's generate_streaming, then python -m
+             hello_tpu_torch.pipeline.soak --reuse --train_mb 1 --workers 4
+             through a launcher script in a subprocess (its RSS sampler sees
+             the soak's process tree), at its default precision bf16: the
+             gate checkpoint trained on the first chromosome on the card,
+             the genome called by the worker-pool caller on the card and
+             evaluated against the planted truth; exit 0, bf16 launches > 0
+             and no other route, scorable sites > 0, precision and recall
+             at least 0.98, both reports written; peak RSS and RSS/BAM
+             (the running peak at the end of each phase and the soak
+             process's own), windows/s, BAI p50/p95, the PCIe probes, the
+             stages, the gate's training seconds and the card's peak
+             allocated memory;
   ddp_path   data-parallel training on train_path's shards, full-width
              illumina: (a) two processes on cuda:0 over gloo (NCCL refuses
              two ranks on one card), each computing one sub-batch's
@@ -170,6 +196,13 @@ TRAIN_INDEL_ERRORS = 0.001       # that train_path trains on
 # the device decode's resolution of 1 - p at sites of up to four alleles:
 # two ulps of a log-probability sum down to 4 x -23.03 (compare_records)
 DECODE_RESOLUTION = 2.0 ** -16
+SOAK_GENOME_BP = 600_000         # soak_path: two chromosomes of 300 kb
+SOAK_CHROM_BP = 300_000
+SOAK_WORKERS = 4
+SOAK_SEED = 7
+# soak_path's precision and recall against the planted truth; the CPU
+# rehearsal of the same command (--device cpu) gave 1.0 and 1.0
+SOAK_MIN_ACCURACY = 0.98
 KERNEL_ALLELES = 2049
 KERNEL_READS = 32
 KERNEL_OCCUPANCY = 0.6
@@ -835,6 +868,7 @@ def train_path_phase(workdir):
     if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0):
         raise AssertionError(f"first losses: card {losses['cuda']}, CPU "
                              f"{losses['cpu']} (rtol 1e-4)")
+    train_path_bf16_phase([b for _, b in first], losses["cpu"])
 
     prefix = os.path.join(workdir, "model")
     rc.reset_launches()              # validation runs the eval forward
@@ -898,6 +932,187 @@ def train_path_phase(workdir):
                                         ds.fasta)["all"],
           "f1_swap": swap})
     return by_route["tf32x3"], eval_launches["tf32x3"], shards
+
+
+def _median_leaf_distance(grads, ref):
+    """Median over leaves of max |grads - ref| / max |ref|."""
+    import numpy as np
+
+    return float(np.median([
+        float((grads[k].cpu() - ref[k].cpu()).abs().max())
+        / max(float(ref[k].abs().max()), 1e-30) for k in ref]))
+
+
+def train_path_bf16_phase(batches, cpu_highest):
+    """The soak's gate training precision: the full-width illumina model at
+    bf16 on the card and the CPU from one init, on train_path's first three
+    batches.  bf16 is chaotic in the order of its fp32 sums (PERF.md).
+    The first step runs both at the same parameters.  Its gradients show
+    that the card rounded where the CPU rounds: their median leaf distance
+    from the CPU's bf16 gradients is at most half the CPU's own bf16 from
+    its highest (0.24x measured), while the card's highest gradients, the
+    control, lie further than that half from the CPU's bf16, and so do the
+    card's bf16 gradients from its own highest.  The first two losses lie
+    within 2x the CPU's own bf16-against-highest distance at that step (or
+    1e-4 relative, the larger).  The third loss is a reading: Adam's first
+    steps move every entry by about its learning rate in the direction of
+    its gradient's sign, so entries whose gradient lies within the chaos of
+    zero step apart on the two devices, and at the third step the card lay
+    outside that bar (PERF.md).  At highest the same steps agree
+    within 1e-4 (train_path), which holds the update itself.  The steps
+    run the read convolver through the layers (no launch of
+    read_conv_reduce), as hello_tpu trains through its XLA layers."""
+    import numpy as np
+
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    def run(device, precision, steps):
+        """The first batch's gradients, then ``steps`` steps' losses."""
+        set_precision(precision)
+        try:
+            trainer = Trainer(create_model("illumina"),
+                              TrainConfig(lr=1e-3, binary=True),
+                              device=device)
+            _, grads = trainer.compute_grads(batches[0])
+            return [trainer.train_batch(b)["loss"]
+                    for b in batches[:steps]], grads
+        finally:
+            set_precision("highest")
+
+    rc.reset_launches()
+    card, card_grads = run("cuda", "bf16", len(batches))
+    launches = dict(rc.read_conv_reduce.launches_by_route)
+    _, card_hi_grads = run("cuda", "highest", 0)
+    cpu, cpu_grads = run("cpu", "bf16", len(batches))
+    _, cpu_hi_grads = run("cpu", "highest", 0)
+    c, b, h = (np.asarray(v, np.float64) for v in (card, cpu, cpu_highest))
+    own = np.abs(b - h)
+    bar = np.maximum(2 * own, 1e-4 * np.abs(b))
+    held = np.abs(c - b)[:2] <= bar[:2]
+    grad_own = _median_leaf_distance(cpu_grads, cpu_hi_grads)
+    grad_dist = _median_leaf_distance(card_grads, cpu_grads)
+    control = _median_leaf_distance(card_hi_grads, cpu_grads)
+    card_own = _median_leaf_distance(card_grads, card_hi_grads)
+    if sum(launches.values()):
+        raise AssertionError(f"bf16 training launched {launches}: it runs "
+                             "the layer path")
+    if not held.all() or not grad_dist <= 0.5 * grad_own < min(control,
+                                                                card_own):
+        raise AssertionError(
+            f"bf16 steps: card {card}, CPU {cpu}, bar {bar.tolist()} "
+            f"(steps 1 and 2); first gradients' median leaf distance from "
+            f"the CPU's bf16 {grad_dist} (bar 0.5x the CPU's own {grad_own}),"
+            f" the card's highest from the CPU's bf16 {control} and from the"
+            f" card's bf16 {card_own} (each above that bar)")
+    emit({"phase": "train_path_bf16", "model": "illumina",
+          "losses": {"cuda": card, "cpu": cpu, "cpu_highest": cpu_highest},
+          "card_vs_cpu_rel": (np.abs(c - b) / np.abs(b)).tolist(),
+          "cpu_bf16_vs_highest_rel": (own / np.abs(h)).tolist(),
+          "bar": bar.tolist(), "held_steps": [1, 2],
+          "step3_within_bar": bool(abs(c[2] - b[2]) <= bar[2]),
+          "first_grads_median_leaf_distance": grad_dist,
+          "cpu_bf16_vs_highest_median_leaf_distance": grad_own,
+          "card_highest_vs_cpu_bf16_median_leaf_distance": control,
+          "card_bf16_vs_highest_median_leaf_distance": card_own,
+          "launches_by_route": launches})
+
+
+# the soak in a process of its own, so that its RSS sampler measures the
+# soak's process tree: the card's launches, the layer route's calls and the
+# card's peak allocated memory after soak.main
+_SOAK_LAUNCHER = """
+import json
+import sys
+
+if __name__ == "__main__":
+    import torch
+    from hello_tpu_torch.nn import moe
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline import soak
+
+    soak.main(sys.argv[1:])
+    print(json.dumps({
+        "launches_by_route": dict(rc.read_conv_reduce.launches_by_route),
+        "layer_route_calls": dict(moe.layer_route_calls),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def soak_path_phase(workdir):
+    """The capacity soak at 600 kb: a two-chromosome genome streamed to disk
+    with the port's generate_streaming, then ``python -m
+    hello_tpu_torch.pipeline.soak --reuse`` in a subprocess at its default
+    precision, bf16: the gate checkpoint trained on the first chromosome on
+    the card, the genome called by the worker-pool caller on the card and
+    evaluated against the planted truth.  Returns the bf16 launches."""
+    from hello_tpu_torch.pipeline.soak import generate_streaming
+
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    ds = generate_streaming(workdir, SOAK_GENOME_BP, SOAK_CHROM_BP, COVERAGE,
+                            120, SOAK_SEED)
+    with open(os.path.join(workdir, "soak_meta.json"), "w") as fh:
+        json.dump(ds, fh)
+    gen_s = time.perf_counter() - t0
+    launcher = os.path.join(workdir, "soak_launch.py")
+    with open(launcher, "w") as fh:
+        fh.write(_SOAK_LAUNCHER)
+    report = os.path.join(workdir, "soak_report.md")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("HELLO_TPU_PRECISION", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, launcher, "--reuse", "--dir", workdir,
+         "--train_mb", "1", "--workers", str(SOAK_WORKERS),
+         "--out", report], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    soak_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"the soak exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    launched = json.loads(proc.stdout.strip().splitlines()[-1])
+    by_route = launched["launches_by_route"]
+    if by_route["bf16"] <= 0 or sum(by_route.values()) != by_route["bf16"]:
+        raise AssertionError(f"the soak launched {by_route}: only route "
+                             "bf16, at least once")
+    report_json = report[:-len(".md")] + ".json"
+    if not (os.path.exists(report) and os.path.exists(report_json)):
+        raise AssertionError(f"the soak wrote {os.listdir(workdir)}")
+    with open(report_json) as fh:
+        result = json.load(fh)
+    accuracy = result["accuracy"]["all"]
+    if result["scorable_sites"] <= 0 or \
+            min(accuracy["precision"], accuracy["recall"]) < SOAK_MIN_ACCURACY:
+        raise AssertionError(f"soak: {result['scorable_sites']} sites, "
+                             f"accuracy {accuracy} (bar {SOAK_MIN_ACCURACY})")
+    emit({"phase": "soak_path", "model": "illumina", "precision": "bf16",
+          "genome_bp": SOAK_GENOME_BP, "chromosome_bp": SOAK_CHROM_BP,
+          "coverage": COVERAGE, "workers": SOAK_WORKERS,
+          "generation_seconds": gen_s, "soak_seconds": soak_s,
+          "card": result["card"], "bam_bytes": ds["bam_bytes"],
+          "truth_variants": ds["truth_variants"],
+          "scorable_sites": result["scorable_sites"],
+          "peak_rss_mb": result["peak_rss_mb"],
+          "peak_rss_vs_bam": result["peak_rss_vs_bam"],
+          "peak_rss_by_phase_mb": result["peak_rss_by_phase_mb"],
+          "rss_pool_ready_mb": result["rss_pool_ready_mb"],
+          "call_rss_growth_mb": result["call_rss_growth_mb"],
+          "windows_per_s": result["sustained_windows_per_s"],
+          "call_wall_s": result["call_wall_s"],
+          "bai_open_p50_ms": result["bai_open_p50_ms"],
+          "bai_open_p95_ms": result["bai_open_p95_ms"],
+          "pcie_before": result["tunnel_before"],
+          "pcie_after": result["tunnel_after"],
+          "stages": result["stages"], "gate_train_s": result["gate_train_s"],
+          "card_max_memory_allocated_mb":
+              launched["max_memory_allocated"] / 1e6,
+          "launches_by_route": by_route,
+          "layer_route_calls": launched["layer_route_calls"],
+          "accuracy": result["accuracy"], "min_accuracy": SOAK_MIN_ACCURACY})
+    return by_route["bf16"]
 
 
 DDP_EPOCHS = 2
@@ -1765,6 +1980,7 @@ def main():
                            parallel_ds, lines[0])
         trained, validation, shards = train_path_phase(
             os.path.join(workdir, "train"))
+        soak = soak_path_phase(os.path.join(workdir, "soak"))
         bn_train_path_phase(os.path.join(workdir, "bn_train"), shards, ds)
         ddp = ddp_path_phase(os.path.join(workdir, "ddp"), shards)
         traced = trace_path_phase(os.path.join(workdir, "trace"), ds, card)
@@ -1779,7 +1995,7 @@ def main():
                    "ddp_path_validation": ddp, "trace_path": traced,
                    "dryrun": dryrun, "demo_path": demo},
         "tf32": {"parallel_path_default": parallel["tf32"]},
-        "bf16": {"parallel_path": parallel["bf16"]},
+        "bf16": {"parallel_path": parallel["bf16"], "soak_path": soak},
     }
     kernels = []
     for route in ROUTES:

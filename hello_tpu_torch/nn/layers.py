@@ -44,11 +44,13 @@ PRECISIONS = ("highest", "high", "default", "bf16")
 #: kernel's 1xTF32 route); "bf16" carries conv activations in bfloat16 (the
 #: kernel's bf16 route): a conv rounds its fp32 input and its weight to
 #: bf16, multiplies them exactly, accumulates in fp32, adds the fp32 bias
-#: and rounds the result to bf16 once.  Its Linear layers may take TF32
-#: (cuBLAS), as at "default"; its convs run with cuDNN's TF32 off: cuDNN's
-#: TF32 kernels keep those products exact but sum them less accurately than
-#: its fp32 kernels, and round more outputs to the other bf16 neighbour
-#: (python -m hello_tpu_torch.pipeline.bf16_conv_check).
+#: and rounds the result to bf16 once (in train mode it rounds the sum,
+#: then adds the bf16 bias, as hello_tpu's training conv).  Its Linear
+#: layers may take TF32 (cuBLAS), as at "default"; its convs run with
+#: cuDNN's TF32 off: cuDNN's TF32 kernels keep those products exact but sum
+#: them less accurately than its fp32 kernels, and round more outputs to
+#: the other bf16 neighbour (python -m
+#: hello_tpu_torch.pipeline.bf16_conv_check).
 #: Linear outputs (the expert logits) stay fp32.  Switch with
 #: set_precision().
 PRECISION = "highest"
@@ -85,12 +87,21 @@ def conv1d_bf16(x, w, b, stride=1, padding=0, dilation=1, groups=1):
     return y if b is None else y + b[None, :, None]
 
 
-def _conv_in(x):
-    """Cast a conv's fp32 input to the activation dtype (no-op in fp32
-    modes)."""
-    if ACT_DTYPE is not None and x.dtype == torch.float32:
-        return x.to(ACT_DTYPE)
-    return x
+class _RoundTo(torch.autograd.Function):
+    """An fp32 tensor rounded to ``dtype`` and returned as fp32, whose
+    gradient passes unrounded.  hello_tpu's jitted training step casts the
+    weights and an fp32 input to bf16 before a conv, and the transpose of
+    each cast would round the fp32 gradient to bf16 and back; XLA drops
+    that round trip (its excess precision), so the weight's and the fp32
+    input's gradients are fp32 sums."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def kaiming_bound(fan_in: int) -> float:
@@ -154,20 +165,33 @@ class _ConvBase(nn.Module):
     def _conv(self, x, w, b):
         """NWC conv.  With bf16 activations the conv runs in fp32 on
         bf16-valued input and weight (every product exact, summed in fp32
-        math: cuDNN's TF32 is off at bf16), the fp32 bias is added and the
-        sum is rounded to bf16 once, where hello_tpu's conv accumulates in
-        fp32 and rounds after its bias (hello_tpu nn/layers.py
-        Conv1d.apply)."""
-        x = _conv_in(x)
-        if x.dtype == torch.float32:
+        math: cuDNN's TF32 is off at bf16).  In eval mode the fp32 bias is
+        added and the sum is rounded to bf16 once, where hello_tpu's conv
+        accumulates in fp32 and rounds after its bias (hello_tpu
+        nn/layers.py Conv1d.apply).  In train mode the sum is rounded to
+        bf16 first and the bias, rounded to bf16, is added in bf16, as
+        hello_tpu's training conv (its output in bf16) does.  The gradients
+        follow hello_tpu's jitted step: a bf16 input's is rounded to bf16
+        once from its fp32 sum, the weight's and an fp32 input's stay fp32
+        (``_RoundTo``), and the bias's is the fp32 sum of the bf16
+        cotangent rounded to bf16 once (XLA on the CPU accumulates that sum
+        in bf16 and lands a few bf16 ulps away)."""
+        dtype = ACT_DTYPE if x.dtype == torch.float32 else x.dtype
+        if dtype in (None, torch.float32):
             y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride,
                          padding=self.padding, dilation=self.dilation,
                          groups=self.groups)
             return y.transpose(1, 2)
-        y = conv1d_bf16(x.float().transpose(1, 2), w.to(x.dtype).float(), b,
-                        stride=self.stride, padding=self.padding,
-                        dilation=self.dilation, groups=self.groups)
-        return y.to(x.dtype).transpose(1, 2)
+        xf = _RoundTo.apply(x, dtype) if x.dtype == torch.float32 \
+            else x.float()
+        train = self.training
+        y = conv1d_bf16(xf.transpose(1, 2), _RoundTo.apply(w, dtype),
+                        None if train else b, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups).to(dtype)
+        if train and b is not None:
+            y = y + b.to(dtype)[None, :, None]
+        return y.transpose(1, 2)
 
 
 class Conv1d(_ConvBase):
@@ -300,7 +324,10 @@ class BatchNorm1d(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         if x.dtype != torch.float32:
-            rs = torch.rsqrt(var + self.eps) * self.weight
+            # a bf16 batch variance plus eps rounds to bf16, its rsqrt is
+            # taken in fp32 and left unrounded, as in hello_tpu's jitted
+            # step (torch's bf16 rsqrt rounds twice on the CPU)
+            rs = torch.rsqrt((var + self.eps).float()) * self.weight
             return x * rs.to(x.dtype) + (self.bias - mean * rs).to(x.dtype)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
@@ -352,13 +379,32 @@ class Sigmoid(nn.Module):
         return torch.sigmoid(x)
 
 
+class _LogAddExp0(torch.autograd.Function):
+    """``logaddexp(x, 0)`` as jnp computes it, ``max(x, 0) +
+    log1p(exp(-|x|))``, with the derivative of its JAX rule, ``exp(x -
+    logaddexp(x, 0))``: each step rounded to the input's dtype, so a bf16
+    gradient rounds where hello_tpu's does (autograd through the forward's
+    steps rounds otherwise in half of the bf16 values)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, y = ctx.saved_tensors
+        return grad * torch.exp(x - y)
+
+
 class Softplus(nn.Module):
     """torch.nn.Softplus: ``log(1 + exp(beta x)) / beta``, and ``x`` itself
     where ``beta x`` exceeds the threshold (the layer_norm config's
     activation).  Computed as hello_tpu's ``jax.nn.softplus`` (jnp's
-    ``logaddexp(beta x, 0)``: ``max(beta x, 0) + log1p(exp(-|beta x|))``),
-    each step rounded to the input's dtype, so bf16 activations round where
-    hello_tpu's do (one fused rounding differs in ~15% of bf16 values)."""
+    ``logaddexp(beta x, 0)``, ``_LogAddExp0``), each step rounded to the
+    input's dtype, so bf16 activations round where hello_tpu's do (one
+    fused rounding differs in ~15% of bf16 values)."""
 
     def __init__(self, beta=1.0, threshold=20.0):
         super().__init__()
@@ -367,7 +413,7 @@ class Softplus(nn.Module):
 
     def forward(self, x):
         bx = self.beta * x
-        soft = torch.clamp(bx, min=0) + torch.log1p(torch.exp(-torch.abs(bx)))
+        soft = _LogAddExp0.apply(bx)
         return torch.where(bx > self.threshold, x, soft / self.beta)
 
 

@@ -66,7 +66,8 @@ def test_port_imports_without_jax_or_hello_tpu():
             "hello_tpu_torch.train.cli, hello_tpu_torch.train.transfer, "
             "hello_tpu_torch.pipeline.dump, hello_tpu_torch.pipeline.evaluate, "
             "hello_tpu_torch.parallel.mesh, hello_tpu_torch.entry, "
-            "hello_tpu_torch.demo, hello_tpu_torch.nn.export")
+            "hello_tpu_torch.demo, hello_tpu_torch.nn.export, "
+            "hello_tpu_torch.pipeline.soak")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
