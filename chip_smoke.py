@@ -7,13 +7,22 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc builds every kernel of the main path from the checkout's
-             sources (ops/csrc/read_conv.cu, all three routes), and the mma
-             probe (ops/csrc/mma_probe.cu), in parallel; reports ptxas'
-             resources, the read rows, dynamic shared memory and threads per
-             block and the resident blocks per SM of each route;
-  probe      the card's rates of mma.sync m16n8k8 TF32 and m16n8k16 bf16, the
-             read-conv kernel's product instructions, at the kernel's 8 warps
-             per SM: the ceilings of its tensor-core work short of wgmma;
+             sources (ops/csrc/read_conv.cu with read_conv_wgmma.cuh: the
+             two TF32 routes on mma.sync and the bf16 route on wgmma), and
+             the probes (ops/csrc/mma_probe.cu), in parallel; reports
+             ptxas' resources, the read rows, dynamic shared memory and
+             threads per block and the resident blocks per SM of each route
+             (the bf16 route's shared memory equal to the layout model's,
+             ops/read_conv_layout.py);
+  probe      the card's rates of mma.sync m16n8k8 TF32 and m16n8k16 bf16 (the
+             TF32 routes' product instructions, at their 8 warps per SM);
+             nine wgmma m64nNk16 bf16 tiles with the bf16 route's own
+             descriptors (N = 16, 32, 64; A from activation buffers in the
+             kernel's layout at tap shifts 0, 1, 2, on the even and odd
+             planes and the stem's [position][8] input, B from the fold's
+             image of a real conv), each held exactly to the float64
+             product of the same values; and wgmma's rate at each N from
+             shared memory at the bf16 route's 3 warpgroups per SM;
   kernel     each route of read_conv_reduce (CUDA) against its plain PyTorch
              version on the card, for C = 6 and C = 7, at ~40k packed rows
              (2049 alleles, an odd A, at 32-read buckets and ~60% occupancy,
@@ -25,8 +34,10 @@ Phases, each printing one JSON line:
              difference from its bf16 plain version at most 1/4 of that
              plain version's from fp32.  Kernel and plain medians, and the
              bounds from this run's inputs (the route's passes at the
-             published tensor-core peak, its bound_ms; at the probe's
-             mma.sync rate; fp32 FMA);
+             published tensor-core peak, its bound_ms, and the share of it
+             the kernel reaches; at the probe's mma.sync rate; for bf16 at
+             the probe's wgmma rate of each conv's N; fp32 FMA), and the
+             bf16 route's launch shape;
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -77,9 +88,12 @@ Phases, each printing one JSON line:
              the card's highest gradients (the control) exceed, as do the
              card's bf16 from its highest; the first two losses within 2x
              the CPU's own bf16-against-highest distance at that step (or
-             1e-4 relative, the larger); the third loss a reading (Adam's
-             sign steps amplify the chaos); no launch of read_conv_reduce
-             (the layer path trains);
+             1e-4 relative, the larger); the third free-running loss a
+             reading; then each of the three steps from the CPU's
+             parameters and optimiser state: loss and gradients held to
+             the CPU's at those bars, and the share of entries whose update
+             lies half a learning rate from the CPU's (Adam's sign steps);
+             no launch of read_conv_reduce (the layer path trains);
   soak_path  (after train_path) the capacity soak at 600 kb: two 300 kb
              chromosomes at 30x (120 bp reads) streamed to disk with the
              port's generate_streaming, then python -m
@@ -152,7 +166,9 @@ Phases, each printing one JSON line:
              launches.
 
 Then a ``kernels`` line (every route of the kernel with its launches on
-each path, error, times and bound), the nvidia-smi line, and as the last line
+each path, error, times, bounds and source: the TF32 routes in
+read_conv.cu, the bf16 route in read_conv_wgmma.cuh), the nvidia-smi line,
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script exits
 non-zero and prints no result.  Without a card, or outside a checkout, it
 exits non-zero at once.
@@ -216,13 +232,15 @@ def card_peaks(name):
     return PEAKS["PCIe" if "PCIe" in name else "SXM"]
 
 
-def macs_per_row(channels):
-    """fp32 multiply-adds of the read convolver for one read row."""
+def macs_per_row(channels, co=None):
+    """fp32 multiply-adds of the read convolver for one read row (of its
+    convs with ``co`` output channels, if given)."""
     from hello_tpu_torch.ops.read_conv import _EXPECTED_TAIL_SHAPES
 
     shapes = [(16, 3 * channels)] + _EXPECTED_TAIL_SHAPES
     lengths = [148, 146, 144] + [71] * 6 + [36] * 3 + [36] * 6
-    return sum(co * kc * lo for (co, kc), lo in zip(shapes, lengths))
+    return sum(c * kc * lo for (c, kc), lo in zip(shapes, lengths)
+               if co in (None, c))
 
 
 def time_ms(fn, reps):
@@ -264,23 +282,34 @@ def build_phase():
     from concurrent.futures import ThreadPoolExecutor
 
     from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.ops import read_conv_layout as lay
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         (path, report), (probe, _) = pool.map(rc.build, (rc.SOURCE, PROBE))
     seconds = time.perf_counter() - t0
     ptxas = [line.strip() for line in report.splitlines()
-             if "registers" in line or "spill" in line]
+             if "registers" in line or "spill" in line or "injected" in line]
+    launch = {f"{route}_C{c}": rc.kernel_info(c, route)
+              for route in ROUTES for c in (6, 7)}
     emit({"phase": "build", "seconds": seconds,
           "library": os.path.relpath(path, ROOT), "ptxas": ptxas,
-          "launch": {f"{route}_C{c}": rc.kernel_info(c, route)
-                     for route in ROUTES for c in (6, 7)}})
+          "launch": launch})
+    for c in (6, 7):
+        got = launch[f"bf16_C{c}"]
+        if (got["smem_bytes"], got["rows_per_block"]) != (lay.SMEM_BYTES,
+                                                          lay.ROWS):
+            raise AssertionError(f"the bf16 route's launch {got} is not the "
+                                 f"layout model's ({lay.SMEM_BYTES} bytes, "
+                                 f"{lay.ROWS} rows)")
     return probe
 
 
 def probe_phase(probe):
     """mma.sync rates (FLOP/s) of the TF32 and bf16 products at one
-    256-thread block per SM; returns {probe function: rate}."""
+    256-thread block per SM; the wgmma tiles (``wgmma_tiles``); wgmma's
+    rate at each N at the bf16 route's warpgroups per SM.  Returns
+    {probe function or "wgmma_<N>": rate}."""
     import ctypes
 
     import torch
@@ -315,7 +344,149 @@ def probe_phase(probe):
               "warps_per_sm": threads // 32, "ms": statistics.median(times),
               "tflop_per_s": rate / 1e12,
               f"share_of_{peak}_peak": rate / peaks[peak]})
+    wgmma_tiles(lib)
+    f = lib.wgmma_rate_probe
+    f.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    f.restype = ctypes.c_int
+    threads, iters = 128 * WGMMA_WARPGROUPS, 2048
+    out = torch.empty(sms * threads, device="cuda")
+    for n in (16, 32, 64):
+        ms = ctypes.c_float()
+        times = []
+        for _ in range(5):
+            err = f(n, sms, threads, iters, out.data_ptr(), stream,
+                    ctypes.byref(ms))
+            if err != 0:
+                raise RuntimeError(f"wgmma_rate_probe n={n} failed: "
+                                   f"cudaError {err}")
+            times.append(ms.value)
+        # 4 products of 64 x n x 16 per warpgroup and iteration
+        flop = 2 * 64 * n * 16 * 4 * iters * sms * WGMMA_WARPGROUPS
+        rate = flop / statistics.median(times) * 1e3
+        rates[f"wgmma_{n}"] = rate
+        emit({"phase": "probe", "instruction": f"wgmma.m64n{n}k16.bf16",
+              "operands": "A and B from shared memory",
+              "warpgroups_per_sm": WGMMA_WARPGROUPS,
+              "ms": statistics.median(times), "tflop_per_s": rate / 1e12,
+              "share_of_bf16_peak": rate / peaks["bf16"]})
     return rates
+
+
+#: the bf16 route's warpgroups per SM (one 384-thread block)
+WGMMA_WARPGROUPS = 3
+#: the wgmma tiles the probe checks: (what, fold index of the conv, A kind,
+#: tile, k-step), A's input a random integer activation buffer in the
+#: kernel's layout, B the fold's image of that conv's weights (on a 1/64
+#: grid, so that every fp32 sum is exact)
+WGMMA_TILE_CASES = (
+    ("stem conv 1, taps 0 and 1 of the [pos][8] input", 0, "stem1", 0, 0),
+    ("stem conv 1, taps 2 and 3 (zero weights)", 0, "stem1", 11, 1),
+    ("stem conv 2, tap 2 (N = 16)", 1, "unit", 11, 2),
+    ("32-channel conv, tap 1, channels 16-31 (N = 32)", 3, "unit", 5, 3),
+    ("stride-2 conv, tap 0 on the even plane", 9, "down", 0, 1),
+    ("stride-2 conv, tap 1 on the odd plane", 9, "down", 1, 2),
+    ("stride-2 conv, tap 2 on the even plane one on", 9, "down", 2, 5),
+    ("1x1 stride-2 shortcut on the odd plane", 11, "short", 2, 1),
+    ("64-channel conv, tap 2, channels 48-63 (N = 64)", 12, "unit", 2, 11),
+)
+
+
+def wgmma_tile_case(convs, rng, kind, i, tile, s):
+    """The buffers of one WGMMA_TILE_CASES case: A's bytes in the kernel's
+    layout, its byte offset and LBO, the fold's image of conv ``i`` (its
+    weights on a 1/64 grid), and the product A B as the conv means it
+    (im2col of the logical activations) in float64, with the rows that
+    read real activations."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.ops import read_conv_layout as lay
+
+    w = np.clip(np.round(convs[i].numpy() * 64) / 64, -2, 2)
+    co, kc = w.shape
+    wk = np.zeros((co, rc.padded_k(kc, "bf16")))
+    wk[:, rc.bf16_k_order(kc).numpy()] = w
+    image = rc.pack_conv(torch.from_numpy(w).float(), "bf16").numpy()
+    p = tile * lay.TILE + np.arange(lay.TILE)
+    k = np.arange(16)
+    ci = {"stem1": 8, "unit": kc // 3, "down": 32, "short": 32}[kind]
+    tap, j = divmod(s, max(ci // 16, 1))
+    if kind == "stem1":
+        positions = lay.P_IN
+        x = rng.randint(0, 256, (kc // 3, lay.ROWS * lay.L_IN))
+        xp = np.zeros((8, positions + 8))
+        xp[:x.shape[0], :x.shape[1]] = x
+        want_a = xp[k[None] % 8, p[:, None] + 2 * s + k[None] // 8]
+        rows = p >= 0
+    elif kind == "unit":
+        positions = {16: lay.P_S, 32: lay.P32B, 64: lay.P64B}[ci]
+        x = rng.randint(0, 256, (ci, positions))
+        want_a = x[16 * j + k[None], p[:, None] + tap]
+        rows = p >= 0
+    else:
+        positions = lay.P_PL
+        x = rng.randint(0, 256, (ci, lay.ROWS * lay.P32))
+        read = 2 * p + (1 if kind == "short" else tap)
+        rows = read < x.shape[1]                 # rows that read x
+        want_a = x[16 * j + k[None], np.minimum(read, x.shape[1] - 1)[:, None]]
+    x = x.astype(np.float32)
+    buf = lay.lay_out(lay.to_planes(x) if kind in ("down", "short") else x,
+                      positions)
+    lbo = lay.a_lbo(kind, positions)
+    return {"a": buf, "a_off": tile * lay.TILE * 16
+            + lay.a_offset(kind, ci, lbo, s), "a_lbo": lbo,
+            "b": image.view(np.uint8), "b_off": s * 2 * co * 16, "n": co,
+            "want": want_a @ wk[:, 16 * s:16 * s + 16].T, "rows": rows}
+
+
+def wgmma_tiles(lib):
+    """One wgmma m64nNk16 tile per case of WGMMA_TILE_CASES with the bf16
+    route's descriptors (mma_probe.cu wgmma_tile_probe), held exactly to the
+    product of the same bf16 values in float64 on the host."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+
+    f = lib.wgmma_tile_probe
+    f.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    f.restype = ctypes.c_int
+    model = init_params(create_model("illumina"),
+                        torch.Generator().manual_seed(0))
+    convs = [w for w, _ in rc.fold_read_conv_weights(model.read_convolver0,
+                                                     "bf16").convs]
+    rng = np.random.RandomState(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    lines = []
+    for what, i, kind, tile, s in WGMMA_TILE_CASES:
+        case = wgmma_tile_case(convs, rng, kind, i, tile, s)
+        a = torch.from_numpy(case["a"].copy()).cuda()
+        b = torch.from_numpy(case["b"].copy()).cuda()
+        d = torch.zeros(64, case["n"], device="cuda")
+        err = f(case["n"], a.data_ptr(), a.numel(), case["a_off"],
+                case["a_lbo"], b.data_ptr(), b.numel(), case["b_off"],
+                d.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"wgmma_tile_probe ({what}) failed: "
+                               f"cudaError {err}")
+        got = d.cpu().numpy().astype(np.float64)[case["rows"]]
+        want = case["want"][case["rows"]]
+        wrong = int((got != want).sum())
+        lines.append({"case": what, "n": case["n"], "tile": tile,
+                      "k_step": s, "wrong": wrong})
+        if wrong:
+            raise AssertionError(
+                f"wgmma tile probe, {what}: {wrong} of {got.size} values "
+                f"differ from the float64 product (first rows: got "
+                f"{got[:2, :4].tolist()}, want {want[:2, :4].tolist()})")
+    emit({"phase": "probe", "wgmma_tiles": lines})
 
 
 def kernel_inputs(rng, channels, device):
@@ -427,10 +598,17 @@ def kernel_phase(name, channels, seed, rates):
         line.update(
             ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
             bound_by="operations" if op_ms >= byte_ms else "bytes",
+            share_of_bound=max(op_ms, byte_ms) / ms,
             mma_sync_bound_ms=1e3 * passes * flop / rates[probe],
             fp32_bound_ms=max(1e3 * flop / peaks["fp32"], byte_ms),
             gflop=flop / 1e9, mbytes=nbytes / 1e6,
             tflop_per_s=flop / ms / 1e9)
+        if route == "bf16":
+            # the products at the probed wgmma rate of each N = Co
+            line["wgmma_bound_ms"] = 1e3 * sum(
+                2.0 * macs_per_row(channels, n) * computed
+                / rates[f"wgmma_{n}"] for n in (16, 32, 64))
+            line["launch"] = rc.kernel_info(channels, route)
         emit(line)
         lines[route] = line
     return lines
@@ -947,47 +1125,123 @@ def train_path_bf16_phase(batches, cpu_highest):
     """The soak's gate training precision: the full-width illumina model at
     bf16 on the card and the CPU from one init, on train_path's first three
     batches.  bf16 is chaotic in the order of its fp32 sums (PERF.md).
-    The first step runs both at the same parameters.  Its gradients show
-    that the card rounded where the CPU rounds: their median leaf distance
-    from the CPU's bf16 gradients is at most half the CPU's own bf16 from
-    its highest (0.24x measured), while the card's highest gradients, the
-    control, lie further than that half from the CPU's bf16, and so do the
-    card's bf16 gradients from its own highest.  The first two losses lie
-    within 2x the CPU's own bf16-against-highest distance at that step (or
-    1e-4 relative, the larger).  The third loss is a reading: Adam's first
-    steps move every entry by about its learning rate in the direction of
-    its gradient's sign, so entries whose gradient lies within the chaos of
-    zero step apart on the two devices, and at the third step the card lay
-    outside that bar (PERF.md).  At highest the same steps agree
-    within 1e-4 (train_path), which holds the update itself.  The steps
-    run the read convolver through the layers (no launch of
+
+    Free-running, the first step runs both at the same parameters.  Its
+    gradients show that the card rounded where the CPU rounds: their median
+    leaf distance from the CPU's bf16 gradients is at most half the CPU's
+    own bf16 from its highest (0.24x measured), while the card's highest
+    gradients, the control, lie further than that half from the CPU's bf16,
+    and so do the card's bf16 gradients from its own highest.  The first
+    two losses lie within 2x the CPU's own bf16-against-highest distance at
+    that step (or 1e-4 relative, the larger); the third is a reading.
+
+    At equal parameters: before each step the card is given the CPU's
+    parameters, optimiser state and step count, and that step's loss and
+    gradients are held to the CPU's bf16 at the same bars, each against the
+    CPU's own bf16-against-highest distance at those parameters (the loss
+    within 2x of it, the gradients' median leaf distance within 0.5x).  If
+    every step holds there, what parts the free-running third losses is the
+    update: Adam's first steps move every entry by about its learning rate
+    in the direction of its gradient's sign, so entries whose gradient lies
+    within the chaos of zero step apart on the two devices.  The phase
+    reports the share of entries whose card update from the CPU's state
+    lies more than half a learning rate from the CPU's.  At highest the same
+    steps agree within 1e-4 (train_path), which holds the update itself.
+    The steps run the read convolver through the layers (no launch of
     read_conv_reduce), as hello_tpu trains through its XLA layers."""
+    import copy
+
     import numpy as np
+    import torch
 
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.nn.moe import create_model
     from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    def run(device, precision, steps):
-        """The first batch's gradients, then ``steps`` steps' losses."""
+    config = TrainConfig(lr=1e-3, binary=True)
+
+    def trainer(device, stand=None):
+        """A trainer at the precision in force; ``stand`` = (parameters,
+        optimiser state, step) puts it where another trainer stood."""
+        t = Trainer(create_model("illumina"), config, device=device)
+        if stand is not None:
+            params, opt, step = stand
+            with torch.no_grad():
+                t.model.load_state_dict(params)
+            t.opt.load_state_dict(opt, t.param_names)
+            t.step = step
+        return t
+
+    def at(precision, fn):
         set_precision(precision)
         try:
-            trainer = Trainer(create_model("illumina"),
-                              TrainConfig(lr=1e-3, binary=True),
-                              device=device)
-            _, grads = trainer.compute_grads(batches[0])
-            return [trainer.train_batch(b)["loss"]
-                    for b in batches[:steps]], grads
+            return fn()
         finally:
             set_precision("highest")
 
+    def run(device, precision, steps):
+        """The first batch's gradients, then ``steps`` steps' losses."""
+        def go():
+            t = trainer(device)
+            _, grads = t.compute_grads(batches[0])
+            return [t.train_batch(b)["loss"] for b in batches[:steps]], grads
+        return at(precision, go)
+
+    def cpu_trajectory():
+        """The CPU's bf16 steps: where it stands before each, and each
+        step's loss and gradients there."""
+        t = trainer("cpu")
+        stands, steps = [], []
+        for b in batches:
+            stands.append((
+                {k: v.clone() for k, v in t.model.state_dict().items()},
+                copy.deepcopy(t.opt.state_dict(t.param_names)), t.step))
+            steps.append(t.compute_grads(b))
+            t.train_batch(b)
+        stands.append(({k: v.clone() for k, v in
+                        t.model.state_dict().items()}, None, t.step))
+        return stands, steps
+
+    def card_step(stand, batch):
+        """The card's loss and gradients from ``stand``, and its parameters
+        after the step."""
+        t = trainer("cuda", stand)
+        loss, grads = t.compute_grads(batch)
+        t.train_batch(batch)
+        return loss, grads, {k: v.cpu() for k, v in
+                             t.model.state_dict().items()}
+
     rc.reset_launches()
     card, card_grads = run("cuda", "bf16", len(batches))
-    launches = dict(rc.read_conv_reduce.launches_by_route)
     _, card_hi_grads = run("cuda", "highest", 0)
-    cpu, cpu_grads = run("cpu", "bf16", len(batches))
-    _, cpu_hi_grads = run("cpu", "highest", 0)
+    stands, cpu_steps = at("bf16", cpu_trajectory)
+    equal, cpu_hi_grads = [], None
+    for i, b in enumerate(batches):
+        loss, grads, after = at("bf16", lambda: card_step(stands[i], b))
+        hi_loss, hi_grads = at("highest",
+                               lambda: trainer("cpu", stands[i])
+                               .compute_grads(b))
+        cpu_loss, cpu_grads = cpu_steps[i]
+        cpu_hi_grads = hi_grads if i == 0 else cpu_hi_grads
+        own = abs(cpu_loss - hi_loss)
+        bar = max(2 * own, 1e-4 * abs(cpu_loss))
+        grad_own = _median_leaf_distance(cpu_grads, hi_grads)
+        grad_dist = _median_leaf_distance(grads, cpu_grads)
+        moved = [(after[k] - stands[i + 1][0][k]).abs() > 0.5 * config.lr
+                 for k in after if after[k].is_floating_point()]
+        equal.append({
+            "step": i + 1, "card": loss, "cpu": cpu_loss,
+            "cpu_highest": hi_loss, "bar": bar,
+            "loss_held": abs(loss - cpu_loss) <= bar,
+            "grads_median_leaf_distance": grad_dist,
+            "cpu_bf16_vs_highest_median_leaf_distance": grad_own,
+            "grads_held": grad_dist <= 0.5 * grad_own,
+            "update_apart_share": float(sum(int(m.sum()) for m in moved)
+                                        / sum(m.numel() for m in moved))})
+    launches = dict(rc.read_conv_reduce.launches_by_route)
+    cpu = [loss for loss, _ in cpu_steps]
+    cpu_grads = cpu_steps[0][1]
     c, b, h = (np.asarray(v, np.float64) for v in (card, cpu, cpu_highest))
     own = np.abs(b - h)
     bar = np.maximum(2 * own, 1e-4 * np.abs(b))
@@ -1007,6 +1261,8 @@ def train_path_bf16_phase(batches, cpu_highest):
             f"the CPU's bf16 {grad_dist} (bar 0.5x the CPU's own {grad_own}),"
             f" the card's highest from the CPU's bf16 {control} and from the"
             f" card's bf16 {card_own} (each above that bar)")
+    if not all(e["loss_held"] and e["grads_held"] for e in equal):
+        raise AssertionError(f"bf16 steps at the CPU's parameters: {equal}")
     emit({"phase": "train_path_bf16", "model": "illumina",
           "losses": {"cuda": card, "cpu": cpu, "cpu_highest": cpu_highest},
           "card_vs_cpu_rel": (np.abs(c - b) / np.abs(b)).tolist(),
@@ -1017,7 +1273,7 @@ def train_path_bf16_phase(batches, cpu_highest):
           "cpu_bf16_vs_highest_median_leaf_distance": grad_own,
           "card_highest_vs_cpu_bf16_median_leaf_distance": control,
           "card_bf16_vs_highest_median_leaf_distance": card_own,
-          "launches_by_route": launches})
+          "equal_parameters": equal, "launches_by_route": launches})
 
 
 # the soak in a process of its own, so that its RSS sampler measures the
@@ -2004,7 +2260,9 @@ def main():
         kernels.append({
             "name": f"read_conv_reduce_{route}", "route": "cuda",
             "kernel_route": route,
-            "source": "hello_tpu_torch/ops/csrc/read_conv.cu",
+            "source": ("hello_tpu_torch/ops/csrc/read_conv_wgmma.cuh"
+                       if route == "bf16" else
+                       "hello_tpu_torch/ops/csrc/read_conv.cu"),
             "replaces": "hello_tpu/ops/read_conv.py:252",
             "also_replaces": "hello_tpu/ops/read_conv.py:263",
             "launches": sum(v if isinstance(v, int) else sum(v.values())
@@ -2015,6 +2273,8 @@ def main():
             "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
             "fp32_bound_ms": k6["fp32_bound_ms"],
             "mma_sync_bound_ms": k6["mma_sync_bound_ms"],
+            "wgmma_bound_ms": k6.get("wgmma_bound_ms"),
+            "share_of_bound": k6["share_of_bound"],
             "ms_C7": k7["ms"], "library_ms": None})
     emit({"kernels": kernels})
     print(smi, flush=True)

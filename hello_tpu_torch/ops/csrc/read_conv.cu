@@ -1,12 +1,16 @@
 // Fused read convolver + per-allele reduction for NVIDIA Hopper (sm_90a),
-// on the tensor cores with warp-level mma.sync, in three routes (one per
-// precision class of the caller; the fold packs the weights for one):
-//   kTF32x3 (highest, high): every product 3xTF32, fp32-class accuracy;
-//   kTF32 (default): one TF32 pass per product, XLA's DEFAULT on a GPU;
-//   kBF16 (bf16): m16n8k16 bf16 products accumulated in fp32, activations
-//       rounded to bf16 where the Pallas kernel's bf16 compute_dtype rounds
-//       them (below, "The bf16 route").
-// Everything but the products and the epilogue's rounding is shared.
+// on the tensor cores, in three routes (one per precision class of the
+// caller; the fold packs the weights for one):
+//   kTF32x3 (highest, high): every product 3xTF32 on warp-level mma.sync,
+//       fp32-class accuracy;
+//   kTF32 (default): one TF32 mma.sync pass per product, XLA's DEFAULT on a
+//       GPU;
+//   kBF16 (bf16): a kernel of its own, read_conv_wgmma.cuh: warpgroup
+//       wgmma products from bf16 shared-memory tiles, weights streamed by
+//       bulk copies on mbarriers, activations rounded to bf16 where the
+//       Pallas kernel's bf16 compute_dtype rounds them.
+// This file holds the two TF32 routes, which share everything but the
+// number of passes, and the C interface of all three.
 //
 // Replaces the two Pallas TPU kernels of hello_tpu/ops/read_conv.py and the
 // masked reduction they end in:
@@ -25,7 +29,7 @@
 // bytes.  For the kernel phase of chip_smoke.py (38,399 computed rows,
 // 389.8 GFLOP) on an H100 SXM at the published dense peaks: 2.36 ms for
 // the three TF32 passes of kTF32x3 (3 x 389.8 GFLOP at 495 TFLOP/s),
-// 0.79 ms for kTF32's one pass, 0.39 ms for kBF16 (989 TFLOP/s); 5.82 ms
+// 0.79 ms for kTF32's one pass (0.39 ms for kBF16 at 989 TFLOP/s); 5.82 ms
 // at the fp32 FMA peak.  mma.sync's rate is about half the tensor-core
 // peak (chip_smoke.py's probe, ops/csrc/mma_probe.cu); wgmma is the way to
 // the rest.
@@ -43,24 +47,8 @@
 // kTF32 keeps only big*big, each operand rounded as above (weights at fold
 // time); the fold drops the small parts from its buffer.
 //
-// The bf16 route.  Weights are rounded to bf16 at fold time (to nearest
-// even) and packed as m16n8k16 A fragments, K padded to a multiple of 16
-// (stem conv 1's 3C to 32).  Activations stay in the same fp32 shared
-// buffers, holding bf16 values: the uint8 input is exact in bf16, and every
-// epilogue rounds what it stores, as the Pallas kernel's bf16 path does:
-// a conv's accumulators start at the fp32 bias and are rounded to bf16 once
-// (ReLU commutes with the rounding); a residual add rounds the branch's conv
-// output first and the sum again, *o = bf16(*o + bf16(relu(v))), and so
-// does y + shortcut.  Max-pool compares bf16 values.  A B fragment's two
-// values per register are packed with cvt.rn.bf16x2.f32, exact on bf16
-// values.  The fold permutes each k-step's K order so that a lane's
-// register pairs hold channels (t, t + 4) and (t + 8, t + 12), not
-// (2t, 2t + 1): the B loads then sit at the TF32 routes' conflict-free
-// offsets, one 4-byte shared load per value.  The frames leave as
-// bf16 values and are summed per allele in fp32 by the atomics, as
-// hello_tpu's packed_read_reduce sums the bf16 frames in fp32.
-//
-// Design, and what it does about the SIMT kernel it replaces:
+// Design of the TF32 routes, and what it does about the SIMT kernel it
+// replaces:
 //   * Tensor cores, not FMA pipes.  Every conv, stem conv 1 included (its
 //     K = 3C zero-padded to 24 at fold time), is an implicit GEMM
 //     out^T [Co][positions] = W [Co][taps * Ci] x im2col(in) on
@@ -112,9 +100,10 @@
 // next block's products; and the activation split, four integer and
 // float ops per element on the way from shared memory to the mma.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "read_conv_wgmma.cuh"
 
 namespace {
 
@@ -158,8 +147,8 @@ constexpr int kNT64 = ntiles(kP64, kLOut, kWN);
 constexpr int kLdS = ld8(imax(kNT2, kNT3) * 8 + 2);
 constexpr int kLd32 = ld8(imax(kNT32 * 8 + 2, kNT64 * 16 + 1));
 constexpr int kLd64 = ld8(kNT64 * 8 + 2);
-// stem conv 1 reads in[q * C + kk] for kk < its padded K (24, or 32 for
-// bf16): below (q + 6) * C for C >= 6
+// stem conv 1 reads in[q * C + kk] for kk < its padded K (24): below
+// (q + 6) * C for C >= 6
 constexpr int kIn0Pos = kNT1 * 8 + 6;
 // region 1: input (position-major), stem 2's output, then x32;
 // region 2: stem 1 and 3's outputs, then y32, then y64 | x64;
@@ -176,19 +165,17 @@ constexpr int kSmemBytes =
 // words of A fragments, then Co bias floats, in the flat buffer.
 template <int R>
 __host__ __device__ constexpr int conv_k(int i) {
-  return i == 0 ? (R == kBF16 ? 32 : 24)
+  return i == 0 ? 24
        : i <= 2 ? 48 : i <= 9 ? 96 : i == 10 ? 192 : i == 11 ? 32 : 192;
 }
 __host__ __device__ constexpr int conv_co(int i) {
   return i <= 1 ? 16 : i <= 8 ? 32 : 64;
 }
 __host__ __device__ constexpr int conv_taps(int i) { return i == 0 || i == 11 ? 1 : 3; }
-// A-fragment words of conv i: big and small TF32 parts, the TF32 part, or
-// two bf16 values per word
+// A-fragment words of conv i: big and small TF32 parts, or the TF32 part
 template <int R>
 __host__ __device__ constexpr int frag_floats(int i) {
-  return R == kTF32x3 ? 2 * conv_k<R>(i) * conv_co(i)
-       : R == kTF32 ? conv_k<R>(i) * conv_co(i) : conv_k<R>(i) * conv_co(i) / 2;
+  return R == kTF32x3 ? 2 * conv_k<R>(i) * conv_co(i) : conv_k<R>(i) * conv_co(i);
 }
 template <int R>
 __host__ __device__ constexpr int conv_off(int i) {
@@ -215,8 +202,7 @@ struct Conv {
 };
 
 // stem conv 1 reads the position-major input: kk = tap * C + ci is one
-// linear offset, so it is a single "tap" of K = 24 or 32 (weights
-// zero-padded)
+// linear offset, so it is a single "tap" of K = 24 (weights zero-padded)
 template <int C, int R>
 using Stem1 = Conv<conv_k<R>(0), 16, 1, C, 0, 1, 0, kLdS, 0, kLIn, 148, kNT1>;
 using Stem2 = Conv<16, 16, 3, 1, 1, kLdS, 0, kLdS, 0, kLIn, 146, kNT2>;
@@ -241,29 +227,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values -> one register of bf16 values, lo in the low half (the
-// lower K index of an mma fragment pair); exact on bf16 values
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// what an epilogue stores: bf16-rounded for the bf16 route (to nearest
-// even, as astype rounds), unchanged for the TF32 routes
-template <int R>
-__device__ __forceinline__ float act(float v) {
-  return R == kBF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
 // Copy n floats (a multiple of 4, 16-byte aligned) global -> shared with
 // cp.async, bypassing L1, as one commit group of the calling thread.
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
@@ -278,8 +241,7 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
 // A = W [Co][K] (m16 tiles of output channels), B = the im2col view of `in`
 // (n8 tiles of positions).  The weights come from the fold as the route's A
 // fragments ([K/8][Co/16][big, small][32 lanes][a0..a3] for kTF32x3, without
-// small for kTF32, [K/16][Co/16][32 lanes][4 bf16 pairs] for kBF16;
-// pack_conv in ops/read_conv.py), staged into shared memory one tap at a
+// small for kTF32; pack_conv in ops/read_conv.py), staged into shared memory one tap at a
 // time: tap t computes from stage `cur` while cp.async fills the other with
 // tap t + 1, or with the first tap of conv NEXT.  Activations are rounded
 // (split for kTF32x3) as their B fragments load.  Every warp takes at most
@@ -289,7 +251,7 @@ template <int R, class G, int I, int NEXT, int WM, int WN, int EPI>
 __device__ __forceinline__ void mma_conv(const float* in, float* out,
                                          const float* __restrict__ weights,
                                          float* wstage, int& cur) {
-  constexpr int KS = R == kBF16 ? 16 : 8;  // K of one mma
+  constexpr int KS = 8;                // K of one mma
   constexpr int MT = G::CO / 16;
   constexpr int CB = G::CI / KS;       // k-steps per tap
   constexpr int MI = MT / WM;
@@ -363,14 +325,7 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
           const float* bp = b_tap + cb * KS * G::CS + j * 8 * G::QS;
           const float x0 = bp[0];
           const float x1 = bp[4 * G::CS];
-          if constexpr (R == kBF16) {
-            // the fold's K order: the pairs are channels (t, t + 4) and
-            // (t + 8, t + 12) of the k-step
-            const uint32_t b0 = pack_bf16x2(x0, x1);
-            const uint32_t b1 = pack_bf16x2(bp[8 * G::CS], bp[12 * G::CS]);
-#pragma unroll
-            for (int i = 0; i < WM; ++i) mma_bf16(acc[i][j], ab[i], b0, b1);
-          } else if constexpr (R == kTF32) {
+          if constexpr (R == kTF32) {
             const uint32_t big0 = tf32_rna(x0);
             const uint32_t big1 = tf32_rna(x1);
 #pragma unroll
@@ -393,8 +348,7 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
     cur ^= 1;
   }
   if (!busy) return;
-  // accumulator (i, j, e): co = tile row g (+8), position q = 2t (+1), for
-  // m16n8k8 and m16n8k16 alike
+  // accumulator (i, j, e): co = tile row g (+8), position q = 2t (+1)
 #pragma unroll
   for (int i = 0; i < WM; ++i) {
 #pragma unroll
@@ -409,11 +363,11 @@ __device__ __forceinline__ void mma_conv(const float* in, float* out,
           float* o = out + co * G::OUT_LD + q + G::OUT_OFF;
           const float v = acc[i][j][e];
           if (EPI == kRelu) {
-            *o = act<R>(fmaxf(v, 0.0f));
+            *o = fmaxf(v, 0.0f);
           } else if (EPI == kReluAdd) {
-            *o = act<R>(*o + act<R>(fmaxf(v, 0.0f)));
+            *o = *o + fmaxf(v, 0.0f);
           } else {
-            *o = act<R>(v);
+            *o = v;
           }
         }
       }
@@ -547,7 +501,7 @@ __global__ void __launch_bounds__(kThreads, 1) read_conv_reduce_kernel(
 }
 
 template <int C, int R>
-cudaError_t launch(const void* rows, int nb, const void* row_allele,
+cudaError_t launch_tf32(const void* rows, int nb, const void* row_allele,
                    const void* row_valid, const void* weights,
                    int num_alleles, void* out, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -564,17 +518,35 @@ cudaError_t launch(const void* rows, int nb, const void* row_allele,
 }
 
 template <int C>
+cudaError_t launch_bf16(const void* rows, int nb, const void* row_allele,
+                        const void* row_valid, const void* weights,
+                        int num_alleles, void* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rcw::read_conv_reduce_wgmma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rcw::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  rcw::read_conv_reduce_wgmma<C>
+      <<<cdiv(nb, rcw::kRows), rcw::kThreads, rcw::kSmemBytes, stream>>>(
+          static_cast<const uint8_t*>(rows), nb,
+          static_cast<const int32_t*>(row_allele),
+          static_cast<const float*>(row_valid),
+          static_cast<const uint8_t*>(weights), num_alleles,
+          static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <int C>
 cudaError_t launch_route(int route, const void* rows, int nb,
                          const void* row_allele, const void* row_valid,
                          const void* weights, int num_alleles, void* out,
                          cudaStream_t s) {
   switch (route) {
     case kTF32x3:
-      return launch<C, kTF32x3>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
+      return launch_tf32<C, kTF32x3>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
     case kTF32:
-      return launch<C, kTF32>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
+      return launch_tf32<C, kTF32>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
     case kBF16:
-      return launch<C, kBF16>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
+      return launch_bf16<C>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -584,7 +556,7 @@ template <int C>
 const void* kernel_of(int route) {
   return route == kTF32x3 ? reinterpret_cast<const void*>(&read_conv_reduce_kernel<C, kTF32x3>)
        : route == kTF32 ? reinterpret_cast<const void*>(&read_conv_reduce_kernel<C, kTF32>)
-       : route == kBF16 ? reinterpret_cast<const void*>(&read_conv_reduce_kernel<C, kBF16>)
+       : route == kBF16 ? reinterpret_cast<const void*>(&rcw::read_conv_reduce_wgmma<C>)
        : nullptr;
 }
 
@@ -617,12 +589,13 @@ extern "C" int read_conv_reduce_info(int channels, int route,
   if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = channels == 6 ? kernel_of<6>(route) : kernel_of<7>(route);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = route == kBF16;
+  *rows_per_block = bf16 ? rcw::kRows : kRows;
+  *smem_bytes = bf16 ? rcw::kSmemBytes : kSmemBytes;
+  *threads = bf16 ? rcw::kThreads : kThreads;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *rows_per_block = kRows;
-  *smem_bytes = kSmemBytes;
-  *threads = kThreads;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, kThreads, kSmemBytes));
+      blocks_per_sm, kernel, *threads, *smem_bytes));
 }

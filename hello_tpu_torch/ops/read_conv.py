@@ -8,8 +8,9 @@ allele slot.  ``read_conv_reduce`` computes
     out[a] = sum over rows r with row_allele[r] == a of
              row_valid[r] * read_convolver(rows[r])          -> [A, 36, 64]
 
-in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: ``mma.sync``
-tensor-core convs over 5 read rows per block, built with ``nvcc`` into
+in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: tensor-core
+convs over 5 read rows per block, ``mma.sync`` for the TF32 routes and
+``wgmma`` for bf16 (``csrc/read_conv_wgmma.cuh``), built with ``nvcc`` into
 ``ops/build/`` at first use and loaded with ctypes).  It replaces the two
 Pallas TPU kernels of hello_tpu's ops/read_conv.py (``_stem_kernel`` and
 ``_tail_kernel``) and the reduction after them, and serves both read layouts
@@ -38,7 +39,8 @@ Weights are folded once per parameter set and route
 becomes ``W[Co, K*Ci]`` (k-major, as hello_tpu's
 ``extract_read_conv_weights``; rounded to bf16 for the bf16 route) plus
 ``b[Co]``.  The kernel reads one flat buffer holding, per conv, ``W`` in the
-route's mma.sync A-fragment order (``pack_conv``), then ``b``.  The topology
+route's layout (``pack_conv``: mma.sync A fragments for the TF32 routes,
+the wgmma B operand's shared-memory image for bf16), then ``b``.  The topology
 gate (``check_read_convolver``) raises for a read convolver the kernel does
 not implement; ``supports_read_convolver`` asks the same question without
 raising, as hello_tpu's ``supports_network``, and the model runs such a
@@ -51,6 +53,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -217,21 +220,34 @@ class FoldedReadConv:
 
 
 def k_step(route: str) -> int:
-    """K of one mma.sync product: m16n8k8 for the TF32 routes, m16n8k16 for
-    bf16."""
+    """K of one product: mma.sync m16n8k8 for the TF32 routes, wgmma
+    m64nNk16 for bf16."""
     return 16 if route == "bf16" else 8
 
 
 def padded_k(kc: int, route: str = "tf32x3") -> int:
     """K of a conv as the route's products take it: a multiple of
-    ``k_step`` (stem conv 1's 3*C = 18 or 21 becomes 24, or 32 for bf16; the
-    others already are)."""
+    ``k_step`` (stem conv 1's 3*C = 18 or 21 becomes 24; for bf16 it
+    becomes 4 taps x 8 channels = 32, ``bf16_k_order``; the others
+    already are)."""
     step = k_step(route)
     return -(-kc // step) * step
 
 
+def bf16_k_order(kc: int) -> torch.Tensor:
+    """Where each of a conv's ``kc`` K columns sits in the bf16 route's
+    padded K: the identity, but for stem conv 1 (kc = 3C, C = 6 or 7),
+    whose column tap * C + ci goes to tap * 8 + ci (the kernel reads its
+    input as [position][8 channels], and a k-step's two core matrices as
+    taps one position apart)."""
+    if kc % 16 == 0:
+        return torch.arange(kc)
+    c = kc // 3
+    return (torch.arange(3)[:, None] * 8 + torch.arange(c)[None, :]).reshape(-1)
+
+
 def fragment_floats(co: int, kc: int, route: str = "tf32x3") -> int:
-    """32-bit words of one conv's A fragments: big and small TF32 parts
+    """32-bit words of one conv's weights: big and small TF32 A fragments
     (tf32x3), the TF32 part (tf32) or two bf16 values per word (bf16)."""
     kp = padded_k(kc, route)
     return {"tf32x3": 2 * co * kp, "tf32": co * kp, "bf16": co * kp // 2}[route]
@@ -258,11 +274,11 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_conv(w: torch.Tensor, route: str = "tf32x3") -> torch.Tensor:
-    """``W [Co, K*Ci]`` -> the kernel's mma.sync A fragments for a route,
-    flat float32 words.
+    """``W [Co, K*Ci]`` -> the kernel's weights for a route, flat float32
+    words.
 
-    The kernel computes each conv as ``W @ im2col(x)`` with W as the
-    row-major A operand; K is zero-padded to ``padded_k``.
+    The TF32 routes compute each conv as ``W @ im2col(x)`` with W as the
+    row-major mma.sync A operand; K is zero-padded to ``padded_k``.
 
     tf32x3 and tf32 (m16n8k8): ``big = tf32(W)`` and, for tf32x3, ``small =
     tf32(W - big)``; the layout is [K/8][Co/16][big, small][lane 32][4]
@@ -271,22 +287,20 @@ def pack_conv(w: torch.Tensor, route: str = "tf32x3") -> torch.Tensor:
     W[16m + g + 8, 8k + t + 4] (one 16-byte load per lane and part, the
     warp's 32 lanes on 512 contiguous bytes).
 
-    bf16 (m16n8k16): W is bf16-valued (the fold rounds it); the layout is
-    [K/16][Co/16][lane 32][4 words][2 halves].  The fragment's K order is
-    permuted so that a lane's register pairs hold channels t and t + 4 (and
-    t + 8, t + 12) of the k-step, not 2t and 2t + 1: the kernel then loads
-    its B fragments at the TF32 routes' conflict-free offsets.  Word 2 hc +
-    hr, half e of lane 4 g + t holds W[16m + 8 hr + g, 16k + 8 hc + 4 e +
-    t]."""
+    bf16 (wgmma, ``out[positions][Co] = im2col(x) @ W^T``): W is
+    bf16-valued (the fold rounds it) and is the B operand, copied whole
+    into shared memory: its image is [K/8][Co][8] bf16, element [k8][n][e]
+    = W[n, 8 k8 + e] (K in ``bf16_k_order``), so 8 output channels x 8 K
+    values are one 128-byte K-major core matrix, the next 8 channels 128
+    bytes on (SBO) and the next 8 K values Co x 16 bytes on (LBO)."""
     co, kc = w.shape
     kp = padded_k(kc, route)
-    w = F.pad(w.float(), (0, kp - kc))
     if route == "bf16":
-        # [m, hr, g, k, hc, e, t] -> [k, m, g, t, hc, hr, e]
-        frag = w.reshape(co // 16, 2, 8, kp // 16, 2, 2, 4).permute(
-            3, 0, 2, 6, 4, 1, 5)
-        return frag.to(torch.bfloat16).contiguous().reshape(-1).view(
-            torch.float32)
+        img = w.new_zeros(co, kp, dtype=torch.float32)
+        img[:, bf16_k_order(kc)] = w.float()
+        return img.reshape(co, kp // 8, 8).transpose(0, 1).to(
+            torch.bfloat16).contiguous().reshape(-1).view(torch.float32)
+    w = F.pad(w.float(), (0, kp - kc))
     big = tf32_round(w)
     # [m, hr, g, k, hc, t] -> [k, m, g, t, hc, hr]: Co index 16m + 8hr + g,
     # K index 8k + 4hc + t, so a0..a3 = (hc, hr) = (0,0), (0,1), (1,0), (1,1)
@@ -397,13 +411,33 @@ def _nvcc() -> str:
     return path
 
 
+def source_files(source: str) -> List[str]:
+    """``source`` and the local headers it includes (``#include "x"``, in
+    its directory, recursively): every file the library is built from."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as fh:
+            for line in fh:
+                m = re.match(r'\s*#\s*include\s+"([^"]+)"', line)
+                if m:
+                    todo.append(os.path.join(os.path.dirname(path), m.group(1)))
+    return seen
+
+
 def build(source: str = SOURCE) -> Tuple[str, str]:
     """Compile a CUDA source (default ``csrc/read_conv.cu``) for sm_90a into
-    ``ops/build/`` (once per source content).  Returns (library path, the
-    compiler's report — ptxas registers, shared memory and spills — or ""
-    when already built)."""
-    with open(source, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
+    ``ops/build/`` (once per content of the source and the headers it
+    includes).  Returns (library path, the compiler's report — ptxas
+    registers, shared memory and spills — or "" when already built)."""
+    digest = hashlib.sha256()
+    for path in source_files(source):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    tag = digest.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     path = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
     if os.path.exists(path):

@@ -432,20 +432,11 @@ def unpack_tf32(frag, co, kp):
 
 
 def unpack_bf16(words, co, kp):
-    """[K/16][Co/16][lane = 4 g + t][word 2 hc + hr][half e] -> W [Co, Kp]:
-    the value sits at row 8 hr + g, column 8 hc + 4 e + t of the m-tile and
-    k-step (the fold's K order; the mma sees it at column 8 hc + 2 t + e)."""
-    halves = words.view(np.uint16).reshape(kp // 16, co // 16, 32, 4, 2)
+    """The wgmma B image [K/8][Co][8] bf16 -> W [Co, Kp]: element [k8][n][e]
+    is W[n, 8 k8 + e], K in the fold's bf16 order (``bf16_k_order``)."""
+    halves = words.view(np.uint16).reshape(kp // 8, co, 8)
     vals = (halves.astype(np.uint32) << 16).view(np.float32)
-    m = np.zeros((co, kp), np.float32)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for hc in range(2):
-            for hr in range(2):
-                for e in range(2):
-                    m[8 * hr + g::16, 8 * hc + 4 * e + t::16] = \
-                        vals[:, :, lane, 2 * hc + hr, e].T
-    return m
+    return vals.transpose(1, 0, 2).reshape(co, kp)
 
 
 @pytest.mark.parametrize("route", ["tf32", "bf16"])
@@ -453,8 +444,9 @@ def unpack_bf16(words, co, kp):
 def test_fold_round_trip_routes(name, C, route):
     """The route's buffer unpacks to its weights: TF32 parts of W rounded
     as cvt.rna rounds (tf32), or W rounded to bf16 to nearest even (bf16),
-    K zero-padded to a whole k-step (stem conv 1: 3C -> 24 or 32), then the
-    fp32 bias."""
+    K zero-padded to a whole k-step (stem conv 1: 3C -> 24; for bf16 4 taps
+    of 8 channels, 32, each tap's C columns at tap * 8), then the fp32
+    bias."""
     model = init_params(moe.create_model(name),
                         torch.Generator().manual_seed(3))
     exact = rc.fold_read_conv_weights(model.read_convolver0, "tf32x3")
@@ -470,11 +462,17 @@ def test_fold_round_trip_routes(name, C, route):
         assert kp == (kc if kc % 16 == 0 else (24 if route == "tf32" else 32))
         n = rc.fragment_floats(co, kc, route)
         frag = flat[off:off + n]
-        m = (unpack_tf32(frag, co, kp) if route == "tf32"
-             else unpack_bf16(frag, co, kp))
-        assert not m[:, kc:].any()
+        if route == "tf32":
+            m = unpack_tf32(frag, co, kp)
+            order = np.arange(kc)
+        else:
+            m = unpack_bf16(frag, co, kp)
+            order = rc.bf16_k_order(kc).numpy()
+            assert kc % 16 or (order == np.arange(kc)).all()
+        assert not np.delete(m, order, axis=1).any()
+        m = m[:, order]
         want = tf32_rna(w) if route == "tf32" else bf16_rne(w)
-        np.testing.assert_array_equal(m[:, :kc], want)
+        np.testing.assert_array_equal(m, want)
         # the plain version's weights: fp32 for tf32, the bf16 values
         np.testing.assert_array_equal(wr.numpy(),
                                       w if route == "tf32" else want)
@@ -485,36 +483,30 @@ def test_fold_round_trip_routes(name, C, route):
 
 
 def test_bf16_fold_order_is_a_consistent_permutation():
-    """The fold's K order permutes each k-step: the mma's product summed over
-    the permuted columns of A and the kernel's B loads (channels t, t + 4,
-    t + 8, t + 12 for lane column pairs 2t, 2t + 1, 2t + 8, 2t + 9) equals
-    W @ x, on one m-tile and k-step."""
+    """The fold's K order for stem conv 1 (tap * 8 + channel) and the
+    kernel's reading of its [position][8] input agree: per k-step s, A read
+    through the kernel's descriptor (taps 2s and 2s + 1, one position apart)
+    times B read through the image's descriptor, summed over the k-steps,
+    is the valid k = 3 conv W * x in float64, on one 64-position tile; and
+    every K column of a conv lands in exactly one place of the image."""
+    from hello_tpu_torch.ops import read_conv_layout as lay
+
     rng = np.random.RandomState(12)
-    w = bf16_rne(rng.randn(16, 16).astype(np.float32))
-    x = bf16_rne(rng.randn(16, 8).astype(np.float32))
-    m = unpack_bf16(rc.pack_conv(torch.from_numpy(w), "bf16").numpy(), 16, 16)
-    np.testing.assert_array_equal(m, w)
-    words = rc.pack_conv(torch.from_numpy(w), "bf16").numpy()
-    halves = words.view(np.uint16).reshape(32, 4, 2)
-    a = (halves.astype(np.uint32) << 16).view(np.float32)
-    out = np.zeros((16, 8), np.float64)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        # the mma's A fragment of this lane, by mma column k
-        frag_a = {(g, 2 * t): a[lane, 0, 0], (g, 2 * t + 1): a[lane, 0, 1],
-                  (g + 8, 2 * t): a[lane, 1, 0],
-                  (g + 8, 2 * t + 1): a[lane, 1, 1],
-                  (g, 2 * t + 8): a[lane, 2, 0],
-                  (g, 2 * t + 9): a[lane, 2, 1],
-                  (g + 8, 2 * t + 8): a[lane, 3, 0],
-                  (g + 8, 2 * t + 9): a[lane, 3, 1]}
-        for (row, k), val in frag_a.items():
-            # the B value the kernel loads for mma column k: channel
-            # t + 4 (k & 1) + 8 (k >= 8) of every position
-            tt = (k % 8) // 2
-            ch = tt + 4 * (k & 1) + 8 * (k >= 8)
-            out[row] += float(val) * x[ch].astype(np.float64)
-    np.testing.assert_allclose(out, w.astype(np.float64) @ x, rtol=1e-12)
+    for c in (6, 7):
+        w = bf16_rne(rng.randn(16, 3 * c).astype(np.float32))
+        x = rng.randint(0, 256, (c, 80)).astype(np.float32)
+        image = rc.pack_conv(torch.from_numpy(w), "bf16").numpy().view(np.uint8)
+        buf = lay.lay_out(x, lay.P_IN)
+        out = sum(lay.read_tile(buf, lay.a_offset(lay.STEM1, 8, 16, s), 16, 64)
+                  @ lay.b_tile(image, 16, s) for s in range(2))
+        want = sum(x[:, t:t + 64].T.astype(np.float64)
+                   @ w[:, t * c:(t + 1) * c].T.astype(np.float64)
+                   for t in range(3))
+        np.testing.assert_array_equal(out, want)
+        order = rc.bf16_k_order(3 * c).numpy()
+        assert len(set(order)) == 3 * c and order.max() < 32
+    for kc in (48, 96, 192, 32):
+        assert (rc.bf16_k_order(kc).numpy() == np.arange(kc)).all()
 
 
 def test_build_compiles_one_library_for_all_routes(monkeypatch, tmp_path):
