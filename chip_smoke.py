@@ -7,22 +7,30 @@ Phases, each printing one JSON line:
 
   device     the card's name and power limit (nvidia-smi);
   build      nvcc builds every kernel of the main path from the checkout's
-             sources (ops/csrc/read_conv.cu with read_conv_wgmma.cuh: the
-             two TF32 routes on mma.sync and the bf16 route on wgmma), and
-             the probes (ops/csrc/mma_probe.cu), in parallel; reports
-             ptxas' resources, the read rows, dynamic shared memory and
-             threads per block and the resident blocks per SM of each route
-             (the bf16 route's shared memory equal to the layout model's,
-             ops/read_conv_layout.py);
+             sources (ops/csrc/read_conv.cu with read_conv_wgmma_tf32.cuh,
+             the two TF32 routes, and read_conv_wgmma.cuh, the bf16 route,
+             all on wgmma), and the probes (ops/csrc/mma_probe.cu), in
+             parallel; reports ptxas' resources, the read rows, dynamic
+             shared memory and threads per block and the resident blocks
+             per SM of each route (each route's shared memory, rows and
+             threads equal to its layout model's, ops/read_conv_layout.py
+             and ops/read_conv_layout_tf32.py);
   probe      the card's rates of mma.sync m16n8k8 TF32 and m16n8k16 bf16 (the
-             TF32 routes' product instructions, at their 8 warps per SM);
-             nine wgmma m64nNk16 bf16 tiles with the bf16 route's own
-             descriptors (N = 16, 32, 64; A from activation buffers in the
-             kernel's layout at tap shifts 0, 1, 2, on the even and odd
-             planes and the stem's [position][8] input, B from the fold's
-             image of a real conv), each held exactly to the float64
-             product of the same values; and wgmma's rate at each N from
-             shared memory at the bf16 route's 3 warpgroups per SM;
+             yardsticks, at 8 warps per SM); nine wgmma m64nNk16 bf16 tiles
+             with the bf16 route's own descriptors (N = 16, 32, 64; A from
+             activation buffers in the kernel's layout at tap shifts 0, 1,
+             2, on the even and odd planes and the stem's [position][8]
+             input, B from the fold's image of a real conv), each held
+             exactly to the float64 product of the same values; wgmma's
+             rate at each N from shared memory at the bf16 route's 3
+             warpgroups per SM; ten wgmma m64nNk8 tf32 tiles with the TF32
+             routes' own register-A fragments and B descriptors (stem conv
+             1, 16-, 32- and 64-channel convs at taps 1 and 2, the
+             stride-2 conv at each tap, the 1x1 shortcut, and a tile whose
+             activations have bits below tf32, which must come out rounded
+             to nearest, not truncated), each held exactly; and the tf32
+             wgmma rate at each N with A from registers at the TF32 routes'
+             3 consumer warpgroups per SM;
   kernel     each route of read_conv_reduce (CUDA) against its plain PyTorch
              version on the card, for C = 6 and C = 7, at ~40k packed rows
              (2049 alleles, an odd A, at 32-read buckets and ~60% occupancy,
@@ -35,9 +43,9 @@ Phases, each printing one JSON line:
              plain version's from fp32.  Kernel and plain medians, and the
              bounds from this run's inputs (the route's passes at the
              published tensor-core peak, its bound_ms, and the share of it
-             the kernel reaches; at the probe's mma.sync rate; for bf16 at
-             the probe's wgmma rate of each conv's N; fp32 FMA), and the
-             bf16 route's launch shape;
+             the kernel reaches; at the probe's mma.sync rate; at the
+             probe's wgmma rate of each conv's N for the route's
+             instruction; fp32 FMA), and each route's launch shape;
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -283,33 +291,38 @@ def build_phase():
 
     from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.ops import read_conv_layout as lay
+    from hello_tpu_torch.ops import read_conv_layout_tf32 as lay_tf32
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         (path, report), (probe, _) = pool.map(rc.build, (rc.SOURCE, PROBE))
     seconds = time.perf_counter() - t0
     ptxas = [line.strip() for line in report.splitlines()
-             if "registers" in line or "spill" in line or "injected" in line]
+             if any(k in line for k in ("registers", "spill", "injected",
+                                         "wgmma"))]
     launch = {f"{route}_C{c}": rc.kernel_info(c, route)
               for route in ROUTES for c in (6, 7)}
     emit({"phase": "build", "seconds": seconds,
           "library": os.path.relpath(path, ROOT), "ptxas": ptxas,
           "launch": launch})
-    for c in (6, 7):
-        got = launch[f"bf16_C{c}"]
-        if (got["smem_bytes"], got["rows_per_block"]) != (lay.SMEM_BYTES,
-                                                          lay.ROWS):
-            raise AssertionError(f"the bf16 route's launch {got} is not the "
-                                 f"layout model's ({lay.SMEM_BYTES} bytes, "
-                                 f"{lay.ROWS} rows)")
+    models = {"bf16": (lay.SMEM_BYTES, lay.ROWS, 384),
+              "tf32x3": (lay_tf32.SMEM_BYTES, lay_tf32.ROWS, lay_tf32.THREADS),
+              "tf32": (lay_tf32.SMEM_BYTES, lay_tf32.ROWS, lay_tf32.THREADS)}
+    for key, got in launch.items():
+        want = models[key.rsplit("_", 1)[0]]
+        if (got["smem_bytes"], got["rows_per_block"], got["threads"]) != want:
+            raise AssertionError(f"the {key} launch {got} is not the layout "
+                                 f"model's (bytes, rows, threads) {want}")
     return probe
 
 
 def probe_phase(probe):
     """mma.sync rates (FLOP/s) of the TF32 and bf16 products at one
-    256-thread block per SM; the wgmma tiles (``wgmma_tiles``); wgmma's
-    rate at each N at the bf16 route's warpgroups per SM.  Returns
-    {probe function or "wgmma_<N>": rate}."""
+    256-thread block per SM; the bf16 wgmma tiles (``wgmma_tiles``) and
+    wgmma's bf16 rate at each N at the bf16 route's warpgroups per SM; the
+    tf32 wgmma tiles (``wgmma_tf32_tiles``) and the tf32 rate at each N with
+    A from registers at the TF32 routes' consumer warpgroups.  Returns
+    {probe function, "wgmma_<N>" or "wgmma_tf32_<N>": rate}."""
     import ctypes
 
     import torch
@@ -370,10 +383,35 @@ def probe_phase(probe):
               "warpgroups_per_sm": WGMMA_WARPGROUPS,
               "ms": statistics.median(times), "tflop_per_s": rate / 1e12,
               "share_of_bf16_peak": rate / peaks["bf16"]})
+    wgmma_tf32_tiles(lib)
+    f = lib.wgmma_tf32_rate_probe
+    f.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    f.restype = ctypes.c_int
+    for n in (16, 32, 64):
+        ms = ctypes.c_float()
+        times = []
+        for _ in range(5):
+            err = f(n, sms, threads, iters, out.data_ptr(), stream,
+                    ctypes.byref(ms))
+            if err != 0:
+                raise RuntimeError(f"wgmma_tf32_rate_probe n={n} failed: "
+                                   f"cudaError {err}")
+            times.append(ms.value)
+        # 4 products of 64 x n x 8 per warpgroup and iteration
+        flop = 2 * 64 * n * 8 * 4 * iters * sms * WGMMA_WARPGROUPS
+        rate = flop / statistics.median(times) * 1e3
+        rates[f"wgmma_tf32_{n}"] = rate
+        emit({"phase": "probe", "instruction": f"wgmma.m64n{n}k8.tf32",
+              "operands": "A from registers, B from shared memory",
+              "warpgroups_per_sm": WGMMA_WARPGROUPS,
+              "ms": statistics.median(times), "tflop_per_s": rate / 1e12,
+              "share_of_tf32_peak": rate / peaks["tf32"]})
     return rates
 
 
-#: the bf16 route's warpgroups per SM (one 384-thread block)
+#: the wgmma warpgroups per SM of both kernels (the bf16 route's one
+#: 384-thread block; the TF32 routes' consumers, beside a producer warpgroup)
 WGMMA_WARPGROUPS = 3
 #: the wgmma tiles the probe checks: (what, fold index of the conv, A kind,
 #: tile, k-step), A's input a random integer activation buffer in the
@@ -487,6 +525,136 @@ def wgmma_tiles(lib):
                 f"differ from the float64 product (first rows: got "
                 f"{got[:2, :4].tolist()}, want {want[:2, :4].tolist()})")
     emit({"phase": "probe", "wgmma_tiles": lines})
+
+
+#: the tf32 wgmma tiles the probe checks: (what, fold index of the conv, A
+#: kind, tile, tap, k-step of the unit, activations with bits below tf32);
+#: A's input a random activation buffer in the kernel's layout (integers,
+#: or for the last case values with bits below tf32), B the fold's image
+#: of one unit of that conv (its weights on a 1/64 grid, so that every fp32
+#: sum is exact)
+WGMMA_TF32_TILE_CASES = (
+    ("stem conv 1, tap 1 of the [pos][8] input", 0, "stem1", 11, 0, 1, False),
+    ("stem conv 2, tap 2, k-step 1 (N = 16)", 1, "unit", 11, 2, 1, False),
+    ("stem conv 3, tap 1, k-step 0 (N = 32)", 2, "unit", 7, 1, 0, False),
+    ("32-channel conv, tap 1, k-step 3 (N = 32)", 3, "unit", 5, 1, 3, False),
+    ("64-channel conv, tap 2, k-step 7 (N = 64)", 12, "unit", 2, 2, 7, False),
+    ("stride-2 conv, tap 0 (even positions)", 9, "down", 0, 0, 1, False),
+    ("stride-2 conv, tap 1 (odd positions)", 9, "down", 1, 1, 2, False),
+    ("stride-2 conv, tap 2 (even positions, one on)", 9, "down", 2, 2, 3,
+     False),
+    ("1x1 stride-2 shortcut", 11, "short", 2, 0, 3, False),
+    ("64-channel conv, tap 1, activations rounded to nearest", 13, "unit",
+     1, 1, 4, True),
+)
+
+
+def wgmma_tf32_tile_case(convs, rng, i, kind, tile, tap, s, fraction):
+    """The buffers of one WGMMA_TF32_TILE_CASES case: A's fp32 activations
+    in the kernel's layout, the fold's image of the conv's unit (its weights
+    on a 1/64 grid), and the product as the conv means it (the logical
+    channels of k-step ``s``, each activation rounded to tf32 with ties
+    away) in float64, with the same product on truncated activations."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.ops import read_conv_layout_tf32 as lay
+
+    w = np.clip(np.round(convs[i].numpy() * 64) / 64, -2, 2)
+    co, kc = w.shape
+    units = rc.tf32_units(kc)
+    image = rc.pack_conv(torch.from_numpy(w).float(), "tf32").numpy()
+    unit = image.reshape(units, -1)[0 if kind == "stem1" else tap]
+    ci = {"stem1": kc // 3, "unit": kc // 3, "down": 32, "short": 32}[kind]
+    positions = {"stem1": lay.P_IN, "down": lay.P32B, "short": lay.P32B,
+                 16: lay.P_S, 32: lay.P32B, 64: lay.P64B}[
+        kind if kind != "unit" else ci]
+    if fraction:
+        x = (rng.randint(512, 2048, (ci, positions))
+             + rng.rand(ci, positions)).astype(np.float32)
+    else:
+        x = rng.randint(0, 256, (ci, positions)).astype(np.float32)
+    p = tile * lay.TILE + np.arange(lay.TILE)
+    k = np.arange(8)
+    if kind == "stem1":
+        ch = 2 * (k % 4) + k // 4                 # tap s, [pos][8] input
+        pos, col = p[:, None] + s, s * ci + ch
+    else:
+        ch = 16 * (s // 2) + 4 * (k % 4) + 2 * (s % 2) + k // 4
+        pos = lay.in_pos(kind, p, tap)[:, None]
+        col = tap * ci + ch if kind != "short" else ch
+    real = ch < ci
+    col = np.where(real, col, 0)
+    w_k = np.where(real[:, None], w[:, col].T, 0.0)      # [8][co]
+    xa = np.where(real[None, :], x[np.minimum(ch, ci - 1)[None, :], pos], 0.0)
+    trunc = (xa.astype(np.float32).view(np.uint32) & np.uint32(0xFFFFE000)
+             ).view(np.float32)
+    return {"a": lay.lay_out(x, positions), "b": unit, "n": co,
+            "ci": {"stem1": 8}.get(kind, ci),
+            "kind": {"unit": 0, "stem1": 1, "down": 2, "short": 3}[kind],
+            "want": lay.tf32_rna(xa).astype(np.float64) @ w_k,
+            "truncated": trunc.astype(np.float64) @ w_k}
+
+
+def wgmma_tf32_tiles(lib):
+    """One wgmma m64nNk8 tf32 tile per case of WGMMA_TF32_TILE_CASES with
+    the TF32 routes' own A fragments (loaded and rounded as the kernel does)
+    and B descriptor (mma_probe.cu wgmma_tf32_tile_probe), held exactly to
+    the product of the same values in float64 on the host."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+
+    f = lib.wgmma_tf32_tile_probe
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 2
+    f.restype = ctypes.c_int
+    model = init_params(create_model("illumina"),
+                        torch.Generator().manual_seed(0))
+    convs = [w for w, _ in rc.fold_read_conv_weights(model.read_convolver0,
+                                                     "tf32").convs]
+    rng = np.random.RandomState(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    lines = []
+    for what, i, kind, tile, tap, s, fraction in WGMMA_TF32_TILE_CASES:
+        case = wgmma_tf32_tile_case(convs, rng, i, kind, tile, tap, s,
+                                    fraction)
+        a = torch.from_numpy(case["a"].copy()).cuda()
+        b = torch.from_numpy(case["b"].copy()).cuda()
+        d = torch.zeros(64, case["n"], device="cuda")
+        err = f(case["n"], case["kind"], case["ci"], a.data_ptr(), a.numel(),
+                tile, tap, s, b.data_ptr(), b.numel() * 4, d.data_ptr(),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"wgmma_tf32_tile_probe ({what}) failed: "
+                               f"cudaError {err}")
+        got = d.cpu().numpy().astype(np.float64)
+        want = case["want"]
+        wrong = int((got != want).sum())
+        line = {"case": what, "n": case["n"], "tile": tile, "tap": tap,
+                "k_step": s, "wrong": wrong}
+        if fraction:
+            # the case tells rounding from truncation only if they differ
+            line["truncation_would_differ"] = int(
+                (case["truncated"] != want).sum())
+            if not line["truncation_would_differ"]:
+                raise AssertionError(f"wgmma tf32 tile probe, {what}: the "
+                                     "activations do not tell rounding from "
+                                     "truncation")
+        lines.append(line)
+        if wrong:
+            raise AssertionError(
+                f"wgmma tf32 tile probe, {what}: {wrong} of {got.size} values "
+                f"differ from the float64 product (first rows: got "
+                f"{got[:2, :4].tolist()}, want {want[:2, :4].tolist()})")
+    emit({"phase": "probe", "wgmma_tf32_tiles": lines})
 
 
 def kernel_inputs(rng, channels, device):
@@ -603,12 +771,13 @@ def kernel_phase(name, channels, seed, rates):
             fp32_bound_ms=max(1e3 * flop / peaks["fp32"], byte_ms),
             gflop=flop / 1e9, mbytes=nbytes / 1e6,
             tflop_per_s=flop / ms / 1e9)
-        if route == "bf16":
-            # the products at the probed wgmma rate of each N = Co
-            line["wgmma_bound_ms"] = 1e3 * sum(
-                2.0 * macs_per_row(channels, n) * computed
-                / rates[f"wgmma_{n}"] for n in (16, 32, 64))
-            line["launch"] = rc.kernel_info(channels, route)
+        # the products at the probed wgmma rate of each N = Co of the
+        # route's instruction
+        rate = "wgmma_{}" if route == "bf16" else "wgmma_tf32_{}"
+        line["wgmma_bound_ms"] = 1e3 * passes * sum(
+            2.0 * macs_per_row(channels, n) * computed
+            / rates[rate.format(n)] for n in (16, 32, 64))
+        line["launch"] = rc.kernel_info(channels, route)
         emit(line)
         lines[route] = line
     return lines
@@ -789,7 +958,7 @@ def check_bf16(card, cpu_bf16, cpu_highest, what):
     weights; returns (card against CPU, the CPU's bf16 against its highest).
 
     Two bf16 runs whose fp32 sums are taken in different orders (the
-    kernel's mma.sync and cuDNN against the CPU's convs) round some sums to
+    kernel's wgmma and cuDNN against the CPU's convs) round some sums to
     neighbouring bf16 values, and each such sum moves the later convs of its
     allele: those sites sit as far apart as bf16 sits from fp32.  So the
     card and the CPU at bf16 must agree on every site and nearly every
@@ -2262,7 +2431,7 @@ def main():
             "kernel_route": route,
             "source": ("hello_tpu_torch/ops/csrc/read_conv_wgmma.cuh"
                        if route == "bf16" else
-                       "hello_tpu_torch/ops/csrc/read_conv.cu"),
+                       "hello_tpu_torch/ops/csrc/read_conv_wgmma_tf32.cuh"),
             "replaces": "hello_tpu/ops/read_conv.py:252",
             "also_replaces": "hello_tpu/ops/read_conv.py:263",
             "launches": sum(v if isinstance(v, int) else sum(v.values())
@@ -2273,7 +2442,7 @@ def main():
             "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
             "fp32_bound_ms": k6["fp32_bound_ms"],
             "mma_sync_bound_ms": k6["mma_sync_bound_ms"],
-            "wgmma_bound_ms": k6.get("wgmma_bound_ms"),
+            "wgmma_bound_ms": k6["wgmma_bound_ms"],
             "share_of_bound": k6["share_of_bound"],
             "ms_C7": k7["ms"], "library_ms": None})
     emit({"kernels": kernels})

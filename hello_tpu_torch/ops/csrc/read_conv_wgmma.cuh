@@ -2,7 +2,8 @@
 // every conv a wgmma.mma_async m64nNk16 bf16 product from shared memory,
 // the weights streamed one conv per stage by bulk copies that complete on
 // mbarriers.  read_conv.cu includes this header for the kernel and
-// mma_probe.cu for the descriptors and the layout it probes.
+// mma_probe.cu for the descriptors and the layout it probes; the PTX
+// helpers it shares with the TF32 routes are in wgmma_ptx.cuh.
 //
 // Replaces, at bf16, the two Pallas TPU kernels of hello_tpu/ops/read_conv.py
 // (_stem_kernel :252 and _tail_kernel :263 with the bf16 compute_dtype of
@@ -80,7 +81,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_ptx.cuh"
+
 namespace rcw {
+
+using namespace wgx;
 
 constexpr int kRows = 5;                  // read rows per block
 constexpr int kWarpgroups = 3;
@@ -150,41 +155,8 @@ constexpr int kStages = 2;                // the ring of weight stages
 constexpr int kSmemBytes = kRegA + kRegB + kStages * (kStage + 8);
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
+// PTX wrappers (the shared ones are in wgmma_ptx.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory matrix descriptor, no swizzle: start address, LBO
-// (between core matrices along K) and SBO (along M or N), all in 16-byte
-// units
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of an accumulator across
-// the wgmma issue and wait that bracket it
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // D[64][N] += A[64][16] B[16][N], bf16 operands from shared memory (both
 // K-major), fp32 accumulators in the m64nNk16 fragment: d[4 j + 2 h + e] is
@@ -234,41 +206,6 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-// one thread: `bytes` (a multiple of 16, both addresses 16-byte aligned)
-// global -> shared, completing on `bar`, whose phase expects them
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {

@@ -8,12 +8,13 @@ allele slot.  ``read_conv_reduce`` computes
     out[a] = sum over rows r with row_allele[r] == a of
              row_valid[r] * read_convolver(rows[r])          -> [A, 36, 64]
 
-in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: tensor-core
-convs over 5 read rows per block, ``mma.sync`` for the TF32 routes and
-``wgmma`` for bf16 (``csrc/read_conv_wgmma.cuh``), built with ``nvcc`` into
-``ops/build/`` at first use and loaded with ctypes).  It replaces the two
-Pallas TPU kernels of hello_tpu's ops/read_conv.py (``_stem_kernel`` and
-``_tail_kernel``) and the reduction after them, and serves both read layouts
+in one launch of ``csrc/read_conv.cu`` (CUDA C++ for sm_90a: ``wgmma``
+tensor-core convs over 5 read rows per block, ``csrc/read_conv_wgmma_tf32.cuh``
+for the TF32 routes and ``csrc/read_conv_wgmma.cuh`` for bf16, built with
+``nvcc`` into ``ops/build/`` at first use and loaded with ctypes).  It
+replaces the two Pallas TPU kernels of hello_tpu's ops/read_conv.py
+(``_stem_kernel`` and ``_tail_kernel``) and the reduction after them, and
+serves both read layouts
 of the model: the packed rows of the coded wire and the dense ``[A, R]``
 grid flattened to rows.
 
@@ -39,8 +40,8 @@ Weights are folded once per parameter set and route
 becomes ``W[Co, K*Ci]`` (k-major, as hello_tpu's
 ``extract_read_conv_weights``; rounded to bf16 for the bf16 route) plus
 ``b[Co]``.  The kernel reads one flat buffer holding, per conv, ``W`` in the
-route's layout (``pack_conv``: mma.sync A fragments for the TF32 routes,
-the wgmma B operand's shared-memory image for bf16), then ``b``.  The topology
+route's layout (``pack_conv``: the wgmma B operand's shared-memory image,
+in units of one tap for the TF32 routes), then ``b``.  The topology
 gate (``check_read_convolver``) raises for a read convolver the kernel does
 not implement; ``supports_read_convolver`` asks the same question without
 raising, as hello_tpu's ``supports_network``, and the model runs such a
@@ -209,7 +210,7 @@ class FoldedReadConv:
     """Folded read-convolver weights for one kernel route: ``convs`` holds
     the 18 ``(W [Co, K*Ci], b [Co])`` pairs (``W`` bf16-valued for the bf16
     route); ``flat`` is the kernel's buffer (per conv the ``pack_conv``
-    fragments, then ``b``, concatenated).  ``launches`` counts the kernel's
+    images, then ``b``, concatenated).  ``launches`` counts the kernel's
     launches with these weights (one read convolver's share of
     ``read_conv_reduce.launches``)."""
     convs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
@@ -220,16 +221,16 @@ class FoldedReadConv:
 
 
 def k_step(route: str) -> int:
-    """K of one product: mma.sync m16n8k8 for the TF32 routes, wgmma
-    m64nNk16 for bf16."""
+    """K of one product: wgmma m64nNk8 for the TF32 routes, m64nNk16 for
+    bf16."""
     return 16 if route == "bf16" else 8
 
 
 def padded_k(kc: int, route: str = "tf32x3") -> int:
     """K of a conv as the route's products take it: a multiple of
-    ``k_step`` (stem conv 1's 3*C = 18 or 21 becomes 24; for bf16 it
-    becomes 4 taps x 8 channels = 32, ``bf16_k_order``; the others
-    already are)."""
+    ``k_step`` (stem conv 1's 3*C = 18 or 21 becomes 3 taps x 8 channels
+    = 24, ``tf32_k_source``; for bf16 it becomes 4 taps x 8 channels =
+    32, ``bf16_k_order``; the others already are)."""
     step = k_step(route)
     return -(-kc // step) * step
 
@@ -246,16 +247,41 @@ def bf16_k_order(kc: int) -> torch.Tensor:
     return (torch.arange(3)[:, None] * 8 + torch.arange(c)[None, :]).reshape(-1)
 
 
+def tf32_k_source(kc: int) -> torch.Tensor:
+    """The W column that each K position of the TF32 routes' B image holds
+    (-1: a zero).  The kernel gives lane 4 g + t of a warp the columns t and
+    t + 4 of a k-step from one load, so the K order within each 16 channels
+    of a tap is permuted: k-step 2 j + h, column t (t + 4) holds channel
+    16 j + 4 t + 2 h (+ 1).  Stem conv 1 (kc = 3C, C = 6 or 7) reads its
+    input as [position][8 channels], one tap per k-step: column t (t + 4)
+    of tap k-step s holds channel 2 t (+ 1) of tap s, zero past C."""
+    k = torch.arange(8)
+    if kc % 16:
+        c = kc // 3
+        ch = 2 * (k % 4) + k // 4
+        src = torch.arange(3)[:, None] * c + ch[None, :]
+        return torch.where(ch[None, :] < c, src, -1).reshape(-1)
+    j = torch.arange(kc)
+    return 16 * (j // 16) + 4 * (j % 4) + 2 * ((j % 16) // 8) + (j % 8) // 4
+
+
+def tf32_units(kc: int) -> int:
+    """The units (taps) a conv's TF32 weights are streamed in: stem conv 1
+    (its K padded to 24) and the 1x1 shortcut (K = 32) are one, the k = 3
+    convs three."""
+    return 1 if kc % 16 or kc == 32 else 3
+
+
 def fragment_floats(co: int, kc: int, route: str = "tf32x3") -> int:
-    """32-bit words of one conv's weights: big and small TF32 A fragments
-    (tf32x3), the TF32 part (tf32) or two bf16 values per word (bf16)."""
+    """32-bit words of one conv's weights: big and small TF32 images
+    (tf32x3), the TF32 image (tf32) or two bf16 values per word (bf16)."""
     kp = padded_k(kc, route)
     return {"tf32x3": 2 * co * kp, "tf32": co * kp, "bf16": co * kp // 2}[route]
 
 
 def num_weight_floats(in_channels: int, route: str = "tf32x3") -> int:
-    """32-bit words of the kernel's buffer for a route: per conv, the A
-    fragments and the bias."""
+    """32-bit words of the kernel's buffer for a route: per conv, the
+    weights' images and the bias."""
     shapes = [(16, 3 * in_channels)] + _EXPECTED_TAIL_SHAPES
     return sum(fragment_floats(co, kc, route) + co for co, kc in shapes)
 
@@ -275,24 +301,24 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 def pack_conv(w: torch.Tensor, route: str = "tf32x3") -> torch.Tensor:
     """``W [Co, K*Ci]`` -> the kernel's weights for a route, flat float32
-    words.
+    words: the shared-memory image of the wgmma B operand of
+    ``out[positions][Co] = im2col(x) @ W^T``, K-major (K zero-padded to
+    ``padded_k``).
 
-    The TF32 routes compute each conv as ``W @ im2col(x)`` with W as the
-    row-major mma.sync A operand; K is zero-padded to ``padded_k``.
+    tf32x3 and tf32 (m64nNk8): K in ``tf32_k_source``'s order, ``big =
+    tf32(W)`` and, for tf32x3, ``small = tf32(W - big)`` (rounded as
+    ``cvt.rna``); the image of each is [K/4][Co][4] fp32, element [k4][n][e]
+    = W[n, 4 k4 + e], so 8 output channels x 4 K values are one 128-byte
+    K-major core matrix, the next 8 channels 128 bytes on (SBO) and the
+    next 4 K values Co x 16 bytes on (LBO).  The kernel streams a conv in
+    ``tf32_units`` units of one tap; each unit is its rows of the big image,
+    then (tf32x3) its rows of the small image.
 
-    tf32x3 and tf32 (m16n8k8): ``big = tf32(W)`` and, for tf32x3, ``small =
-    tf32(W - big)``; the layout is [K/8][Co/16][big, small][lane 32][4]
-    (tf32: [K/8][Co/16][lane 32][4]): for lane = 4 g + t, a0..a3 =
-    W[16m + g, 8k + t], W[16m + g + 8, 8k + t], W[16m + g, 8k + t + 4],
-    W[16m + g + 8, 8k + t + 4] (one 16-byte load per lane and part, the
-    warp's 32 lanes on 512 contiguous bytes).
-
-    bf16 (wgmma, ``out[positions][Co] = im2col(x) @ W^T``): W is
-    bf16-valued (the fold rounds it) and is the B operand, copied whole
-    into shared memory: its image is [K/8][Co][8] bf16, element [k8][n][e]
-    = W[n, 8 k8 + e] (K in ``bf16_k_order``), so 8 output channels x 8 K
-    values are one 128-byte K-major core matrix, the next 8 channels 128
-    bytes on (SBO) and the next 8 K values Co x 16 bytes on (LBO)."""
+    bf16 (wgmma m64nNk16): W is bf16-valued (the fold rounds it), its
+    image [K/8][Co][8] bf16, element [k8][n][e] = W[n, 8 k8 + e] (K in
+    ``bf16_k_order``), so 8 output channels x 8 K values are one 128-byte
+    K-major core matrix, the next 8 channels 128 bytes on (SBO) and the
+    next 8 K values Co x 16 bytes on (LBO)."""
     co, kc = w.shape
     kp = padded_k(kc, route)
     if route == "bf16":
@@ -300,16 +326,17 @@ def pack_conv(w: torch.Tensor, route: str = "tf32x3") -> torch.Tensor:
         img[:, bf16_k_order(kc)] = w.float()
         return img.reshape(co, kp // 8, 8).transpose(0, 1).to(
             torch.bfloat16).contiguous().reshape(-1).view(torch.float32)
-    w = F.pad(w.float(), (0, kp - kc))
-    big = tf32_round(w)
-    # [m, hr, g, k, hc, t] -> [k, m, g, t, hc, hr]: Co index 16m + 8hr + g,
-    # K index 8k + 4hc + t, so a0..a3 = (hc, hr) = (0,0), (0,1), (1,0), (1,1)
-    frag = lambda m: m.reshape(co // 16, 2, 8, kp // 8, 2, 4).permute(
-        3, 0, 2, 5, 4, 1)
+    src = tf32_k_source(kc)
+    wk = w.new_zeros(co, kp, dtype=torch.float32)
+    wk[:, src >= 0] = w.float()[:, src[src >= 0]]
+    big = tf32_round(wk)
+    units = tf32_units(kc)
+    image = lambda m: m.reshape(co, kp // 4, 4).transpose(0, 1).reshape(
+        units, -1)
     if route == "tf32":
-        return frag(big).reshape(-1)
-    small = tf32_round(w - big)
-    return torch.stack([frag(big), frag(small)], dim=2).reshape(-1)
+        return image(big).reshape(-1)
+    return torch.stack([image(big), image(tf32_round(wk - big))],
+                       dim=1).reshape(-1)
 
 
 @torch.no_grad()

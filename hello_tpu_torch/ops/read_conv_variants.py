@@ -1,11 +1,12 @@
-"""Time source variants of read_conv_reduce's bf16 route on the card.
+"""Time source variants of a route of read_conv_reduce on the card.
 
-A variant is the route's source (``csrc/read_conv.cu`` with
-``csrc/read_conv_wgmma.cuh``) with text substitutions: another number of
-read rows per block or of weight stages, one atomic per row instead of one
-per allele, or one part of the block's work taken out (the products, the
-weight copies after the first stages, the epilogue's stores, the atomics)
-to show what that part costs.  Every variant is built with
+A variant is the kernel's sources with text substitutions in the route's
+own file (``--route bf16``: ``csrc/read_conv_wgmma.cuh``; ``tf32x3`` and
+``tf32``: ``TF32_SOURCE``, one file for both): another number of read rows
+per block or of weight stages, one atomic per row instead of one per
+allele, or one part of the block's work taken out (the products, the
+weight copies, the epilogue's stores, the atomics) to show what that part
+costs.  Every variant is built with
 nvcc into a temporary directory, all at once, and timed by CUDA events at
 chip_smoke.py's kernel-phase shape (2049 alleles, 32-read buckets about 60%
 occupied, C = 6), in turns: the variants forward, then backward, so that
@@ -81,31 +82,88 @@ VARIANTS = {
 }
 
 HEADER = "read_conv_wgmma.cuh"
+
+#: the TF32 routes' header: edits of it for both TF32 routes, in the same
+#: form as VARIANTS
+TF32_SOURCE = "read_conv_wgmma_tf32.cuh"
+# the tf32 wgmma instructions become PTX comments: their operands are still
+# computed (the A loads and the split) and the accumulators kept
+_TF32_NO_PRODUCTS = ('"wgmma.mma_async.sync.aligned.m64n',
+                     '"// wgmma.mma_async.sync.aligned.m64n')
+TF32_VARIANTS = {
+    "base": (True, ()),
+    "no_products": (False, (_TF32_NO_PRODUCTS,)),
+    "no_products_no_epilogue": (False, (
+        _TF32_NO_PRODUCTS,
+        ("if (r >= kRows || l >= LO) continue;", "continue;"))),
+    # each unit's full barrier completes on the producer's arrival alone:
+    # no weight byte moves, and the products read stale stages
+    "no_weight_traffic": (False, ((
+        "bulk_load(stages + s * kStage, weights + conv_off<P>(i) + t * n, "
+        "n * 4, full + s);", "mbar_arrive(full + s, true);"),)),
+    "no_atomics": (False, (("atomicAdd(out + ",
+                            "if (sum == -1.0f) atomicAdd(out + "),)),
+    # the activations' small parts are not computed (the products stay)
+    "no_split": (False, ((
+        "small[h][e] = tf32_rna(x[h][e] - __uint_as_float(big[h][e]));",
+        "small[h][e] = big[h][e];"),)),
+    # the producer one warp, and no setmaxnreg: 128 registers a thread
+    "producer_warp": (True, (("constexpr int kProducerWarps = 4;",
+                              "constexpr int kProducerWarps = 1;"),)),
+    # A loads (pairs of k-steps) of a tile per commit group: both routes
+    # at 1, at 2, or at 4
+    "loads1": (True, (("constexpr int kLoads1 = 2;", "constexpr int kLoads1 = 1;"),)),
+    "loads2": (True, (("constexpr int kLoads3 = 1;", "constexpr int kLoads3 = 2;"),)),
+    "loads4": (True, (("constexpr int kLoads3 = 1;", "constexpr int kLoads3 = 4;"),
+                      ("constexpr int kLoads1 = 2;", "constexpr int kLoads1 = 4;"))),
+}
+
+#: route -> (the file its edits apply to, its variants, a word of its
+#: kernels' names in ptxas' report)
+ROUTE_VARIANTS = {
+    "bf16": (HEADER, VARIANTS, "rcw"),
+    "tf32x3": (TF32_SOURCE, TF32_VARIANTS, "rct"),
+    "tf32": (TF32_SOURCE, TF32_VARIANTS, "rct"),
+}
 ALLELES, READS, OCCUPANCY = 2049, 32, 0.6
 
 
-def variant_sources(name: str) -> dict:
-    """{file name: text} of the route's sources with the variant's
-    substitutions in its header (raises if one does not apply)."""
+def variant_sources(name: str, route: str = "bf16") -> dict:
+    """{file name: text} of the kernel's sources with the route's variant
+    ``name`` substituted in the route's file (raises if an edit does not
+    apply)."""
     from . import read_conv as rc
 
+    target, variants, _ = ROUTE_VARIANTS[route]
     texts = {os.path.basename(p): open(p).read()
              for p in rc.source_files(rc.SOURCE)}
-    for old, new in VARIANTS[name][1]:
-        if old not in texts[HEADER]:
-            raise ValueError(f"variant {name}: {old!r} is not in {HEADER}")
-        texts[HEADER] = texts[HEADER].replace(old, new)
+    for old, new in variants[name][1]:
+        if old not in texts[target]:
+            raise ValueError(f"variant {name}: {old!r} is not in {target}")
+        texts[target] = texts[target].replace(old, new)
     return texts
 
 
-def build_variant(name: str, workdir: str):
+AGAINST = "against"
+
+
+def build_variant(name: str, workdir: str, route: str = "bf16",
+                  against: str = None):
     """nvcc the variant into ``workdir``/name; returns (library, ptxas'
-    lines of the bf16 kernel)."""
+    lines of the route's kernels).  The variant ``AGAINST`` is the kernel's
+    sources in the directory ``against`` (another checkout's
+    hello_tpu_torch/ops/csrc), unedited."""
     from . import read_conv as rc
 
+    marker = ROUTE_VARIANTS[route][2]
     d = os.path.join(workdir, name)
     os.makedirs(d)
-    for f, text in variant_sources(name).items():
+    if name == AGAINST:
+        texts = {os.path.basename(p): open(p).read() for p in rc.source_files(
+            os.path.join(against, os.path.basename(rc.SOURCE)))}
+    else:
+        texts = variant_sources(name, route)
+    for f, text in texts.items():
         with open(os.path.join(d, f), "w") as fh:
             fh.write(text)
     lib = os.path.join(d, "lib.so")
@@ -117,7 +175,7 @@ def build_variant(name: str, workdir: str):
                            f"{proc.stdout}{proc.stderr}")
     report = (proc.stdout + proc.stderr).splitlines()
     return lib, [line.strip() for i, line in enumerate(report)
-                 if "Used" in line and "rcw" in " ".join(report[i - 2:i])]
+                 if "Used" in line and marker in " ".join(report[i - 2:i])]
 
 
 def inputs(seed: int):
@@ -146,14 +204,33 @@ def main(argv=None):
     from . import read_conv as rc
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--route", default="bf16",
+                    help="bf16, tf32x3 or tf32; or tf32x3,tf32: the TF32 "
+                         "routes share their source and variants, which are "
+                         "then built once and timed for both")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated (default: all of the route's)")
+    ap.add_argument("--against", default=None,
+                    help="a directory of another checkout's kernel sources "
+                         "(hello_tpu_torch/ops/csrc), timed as the variant "
+                         f"{AGAINST!r} (it must take this fold's weights)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    names = args.variants.split(",")
+    routes = args.route.split(",")
+    if (any(r not in ROUTE_VARIANTS for r in routes)
+            or len({ROUTE_VARIANTS[r][0] for r in routes}) != 1):
+        raise SystemExit(f"--route {args.route}: one of {list(ROUTE_VARIANTS)}"
+                         ", or routes that share their source")
+    variants = ROUTE_VARIANTS[routes[0]][1]
+    names = (args.variants or ",".join(variants)).split(",")
     for n in names:
-        if n not in VARIANTS:
-            raise SystemExit(f"unknown variant {n!r} (of {list(VARIANTS)})")
+        if n not in variants:
+            raise SystemExit(f"unknown variant {n!r} of route {routes[0]} "
+                             f"(of {list(variants)})")
+    if args.against:
+        names.append(AGAINST)
+        variants = {**variants, AGAINST: (True, ())}
     if not torch.cuda.is_available():
         raise SystemExit("read_conv_variants times the kernel on a card; "
                          "none is visible")
@@ -162,26 +239,45 @@ def main(argv=None):
                           text=True).stdout.strip().splitlines()[0]
     model = init_params(create_model("illumina"),
                         torch.Generator().manual_seed(args.seed))
-    folded = rc.fold_read_conv_weights(model.read_convolver0, "bf16")
-    flat = folded.flat.cuda()
     rows, allele, valid = inputs(args.seed)
+    cuda = lambda f: rc.FoldedReadConv(
+        tuple((w.cuda(), b.cuda()) for w, b in f.convs), f.flat.cuda(),
+        f.in_channels, f.route)
+    folded = {r: cuda(rc.fold_read_conv_weights(model.read_convolver0, r))
+              for r in {*routes, "tf32x3"}}
     with torch.no_grad():
-        cuda = lambda f: rc.FoldedReadConv(
-            tuple((w.cuda(), b.cuda()) for w, b in f.convs), f.flat.cuda(),
-            f.in_channels, f.route)
-        want = rc.read_conv_reduce_reference(rows, allele, valid,
-                                             cuda(folded), ALLELES)
+        # the plain version in fp32 math, and with cuDNN's TF32 as each
+        # route's precision sets it (on at default only)
         torch.backends.cudnn.allow_tf32 = False
-        exact = rc.read_conv_reduce_reference(
-            rows, allele, valid,
-            cuda(rc.fold_read_conv_weights(model.read_convolver0, "tf32x3")),
-            ALLELES)
-    bar = 0.25 * float((want - exact).abs().max())
+        exact = rc.read_conv_reduce_reference(rows, allele, valid,
+                                              folded["tf32x3"], ALLELES)
+        want = {}
+        for r in routes:
+            torch.backends.cudnn.allow_tf32 = r == "tf32"
+            want[r] = rc.read_conv_reduce_reference(rows, allele, valid,
+                                                    folded[r], ALLELES)
+        torch.backends.cudnn.allow_tf32 = False
+
+    def holds(route, got):
+        """(max abs error against the route's yardstick, its bar, held)"""
+        if route == "tf32x3":
+            err = float((got - exact).abs().max())
+            return err, "rtol 1e-4 / atol 1e-3", bool(
+                torch.allclose(got, exact, rtol=1e-4, atol=1e-3))
+        if route == "tf32":
+            err = float((got - exact).abs().max())
+            bar = 2 * float((want[route] - exact).abs().max())
+        else:
+            err = float((got - want[route]).abs().max())
+            bar = 0.25 * float((want[route] - exact).abs().max())
+        return err, bar, err <= bar
+
     workdir = tempfile.mkdtemp(prefix="read_conv_variants_")
     try:
         with ThreadPoolExecutor(len(names)) as pool:
             built = dict(zip(names, pool.map(
-                lambda n: build_variant(n, workdir), names)))
+                lambda n: build_variant(n, workdir, routes[0], args.against),
+                names)))
         libs = {}
         for n, (path, _) in built.items():
             lib = ctypes.CDLL(path)
@@ -191,46 +287,51 @@ def main(argv=None):
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             libs[n] = lib
 
-        def run(n):
+        def run(n, route):
             out = torch.zeros((ALLELES, rc.L_OUT, rc.C_OUT), device="cuda")
             err = libs[n].read_conv_reduce_run(
-                rows.data_ptr(), rows.shape[0], 6, rc.ROUTE_IDS["bf16"],
-                allele.data_ptr(), valid.data_ptr(), flat.data_ptr(),
-                ALLELES, out.data_ptr(),
+                rows.data_ptr(), rows.shape[0], 6, rc.ROUTE_IDS[route],
+                allele.data_ptr(), valid.data_ptr(),
+                folded[route].flat.data_ptr(), ALLELES, out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
             if err != 0:
-                raise RuntimeError(f"variant {n}: cudaError {err}")
+                raise RuntimeError(f"variant {n} of route {route}: "
+                                   f"cudaError {err}")
             return out
 
-        times = {n: [] for n in names}
+        times = {(r, n): [] for r in routes for n in names}
         for rnd, order in enumerate((names, names[::-1])):
             for n in order:
-                got = run(n)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                if VARIANTS[n][0] and not err <= bar:
-                    raise AssertionError(f"variant {n}: max abs error {err} "
-                                         f"above the bar {bar}")
-                run(n)
-                reps = []
-                for _ in range(args.reps):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    run(n)
-                    end.record()
-                    end.synchronize()
-                    reps.append(start.elapsed_time(end))
-                ms = statistics.median(reps)
-                times[n].append(ms)
-                print(json.dumps({"variant": n, "round": rnd, "ms": ms,
-                                  "keeps_arithmetic": VARIANTS[n][0],
-                                  "max_abs_err": err, "bar": bar,
-                                  "ptxas": built[n][1], "card": card}),
-                      flush=True)
-        print(json.dumps({"median_ms": {n: statistics.median(t)
-                                        for n, t in times.items()},
-                          "rows": rows.shape[0], "card": card}), flush=True)
+                for route in routes:
+                    got = run(n, route)
+                    torch.cuda.synchronize()
+                    err, bar, ok = holds(route, got)
+                    if variants[n][0] and not ok:
+                        raise AssertionError(f"variant {n} of route {route}: "
+                                             f"max abs error {err}, bar {bar}")
+                    run(n, route)
+                    reps = []
+                    for _ in range(args.reps):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        run(n, route)
+                        end.record()
+                        end.synchronize()
+                        reps.append(start.elapsed_time(end))
+                    ms = statistics.median(reps)
+                    times[route, n].append(ms)
+                    print(json.dumps({"route": route, "variant": n,
+                                      "round": rnd, "ms": ms,
+                                      "keeps_arithmetic": variants[n][0],
+                                      "max_abs_err": err, "bar": bar,
+                                      "ptxas": built[n][1], "card": card}),
+                          flush=True)
+        for route in routes:
+            print(json.dumps({"route": route,
+                              "median_ms": {n: statistics.median(times[route, n])
+                                            for n in names},
+                              "rows": rows.shape[0], "card": card}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

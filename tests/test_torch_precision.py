@@ -419,16 +419,24 @@ def bf16_rne(x):
     return bits.astype(np.uint32).view(np.float32)
 
 
-def unpack_tf32(frag, co, kp):
-    """[K/8][Co/16][lane = 4 g + t][a0..a3] -> W [Co, Kp]: a0..a3 at (row,
-    col) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)."""
-    frag = frag.reshape(kp // 8, co // 16, 32, 4)
-    m = np.zeros((co, kp), np.float32)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for a, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 4), (8, 4)]):
-            m[g + dr::16, t + dc::8] = frag[:, :, lane, a].T
-    return m
+def unpack_tf32(frag, co, kc):
+    """The TF32 B image [K/4][Co][4] -> W [Co, Kp] in the conv's own K
+    order, the K positions that hold no channel last.  Image K position p
+    holds, within 16 channels of a tap, channel 16 j + 4 t + 2 h (+ 1) at
+    k-step 2 j + h, column t (t + 4); for stem conv 1 (kc = 3C, Kp = 24)
+    channel 2 t (+ 1) of tap s at k-step s, zero past C."""
+    kp = -(-kc // 8) * 8
+    m = frag.reshape(kp // 4, co, 4).transpose(1, 0, 2).reshape(co, kp)
+    p = np.arange(kp)
+    if kc % 16:
+        c = kc // 3
+        ch = 2 * (p % 4) + (p % 8) // 4
+        src = np.where(ch < c, (p // 8) * c + ch, -1)
+    else:
+        src = 16 * (p // 16) + 4 * (p % 4) + 2 * ((p % 16) // 8) + (p % 8) // 4
+    order = np.concatenate([np.argsort(np.where(src >= 0, src, kp))[:kc],
+                            np.flatnonzero(src < 0)])
+    return m[:, order]
 
 
 def unpack_bf16(words, co, kp):
@@ -444,9 +452,9 @@ def unpack_bf16(words, co, kp):
 def test_fold_round_trip_routes(name, C, route):
     """The route's buffer unpacks to its weights: TF32 parts of W rounded
     as cvt.rna rounds (tf32), or W rounded to bf16 to nearest even (bf16),
-    K zero-padded to a whole k-step (stem conv 1: 3C -> 24; for bf16 4 taps
-    of 8 channels, 32, each tap's C columns at tap * 8), then the fp32
-    bias."""
+    K zero-padded to a whole k-step (stem conv 1: 3 taps of 8 channels for
+    tf32, 24, and 4 for bf16, 32, each tap's C columns first), then the
+    fp32 bias."""
     model = init_params(moe.create_model(name),
                         torch.Generator().manual_seed(3))
     exact = rc.fold_read_conv_weights(model.read_convolver0, "tf32x3")
@@ -463,7 +471,7 @@ def test_fold_round_trip_routes(name, C, route):
         n = rc.fragment_floats(co, kc, route)
         frag = flat[off:off + n]
         if route == "tf32":
-            m = unpack_tf32(frag, co, kp)
+            m = unpack_tf32(frag, co, kc)
             order = np.arange(kc)
         else:
             m = unpack_bf16(frag, co, kp)

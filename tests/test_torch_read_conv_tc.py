@@ -1,12 +1,13 @@
 """The tensor-core read-conv kernel's fold and arithmetic, on the CPU.
 
-The CUDA kernel (hello_tpu_torch/ops/csrc/read_conv.cu) computes every conv
-as 3xTF32 mma.sync products from a weight buffer that the fold packs in
-mma.sync A-fragment order.  Neither runs here, so these tests hold the two
-things the kernel's accuracy rests on:
+The CUDA kernel's TF32 routes (hello_tpu_torch/ops/csrc/read_conv_wgmma_tf32.cuh)
+compute every conv as 3xTF32 wgmma products from a weight buffer that the
+fold packs as the B operand's shared-memory image, one tap at a time.
+Neither runs here, so these tests hold the two things the kernel's
+accuracy rests on:
 
 * the fold: the flat buffer unpacks back to the folded ``W [Co, K*Ci]`` and
-  ``b`` of all 18 convs, its ``big`` and ``small`` halves are TF32 values
+  ``b`` of all 18 convs, its ``big`` and ``small`` images are TF32 values
   (low 13 mantissa bits zero) rounded as ``cvt.rna.tf32.f32`` rounds, and
   ``big + small`` is ``W`` to within 2^-21 relative;
 * the arithmetic: every conv of the plain version run as the kernel runs it
@@ -51,25 +52,43 @@ def folded(name, seed):
     return rc.fold_read_conv_weights(model.read_convolver0)
 
 
+def image_to_w(image, co, kc, kp):
+    """A TF32 B image [K/4][Co][4] (K in the kernel's order) -> W [Co, Kp]
+    in the conv's own K order: column j of W is K position ``order[j]`` of
+    the image, where the kernel gives lane t of a k-step the columns t and
+    t + 4 from one load (within 16 channels of a tap, k-step 2 j + h,
+    column t (t + 4) holds channel 16 j + 4 t + 2 h (+ 1); stem conv 1 at
+    tap s, column t (t + 4) channel 2 t (+ 1) of its 8); the K positions
+    that hold no channel (stem conv 1 past C) come last."""
+    m = image.reshape(kp // 4, co, 4).transpose(1, 0, 2).reshape(co, kp)
+    if kc % 16:
+        c = kc // 3
+        k = np.arange(8)
+        ch = 2 * (k % 4) + k // 4
+        src = np.where(ch < c, np.arange(3)[:, None] * c + ch, -1).reshape(-1)
+    else:
+        j = np.arange(kc)
+        src = 16 * (j // 16) + 4 * (j % 4) + 2 * ((j % 16) // 8) + (j % 8) // 4
+    order = np.concatenate([np.argsort(np.where(src >= 0, src, kp))[:kc],
+                            np.flatnonzero(src < 0)])
+    assert sorted(src[order[:kc]]) == list(range(kc))
+    return m[:, order]
+
+
 def unpack(flat, convs):
     """The kernel's buffer -> [(big [Co, Kp], small [Co, Kp], b [Co])]: per
-    conv, [K/8][Co/16][big|small][lane = 4 g + t][a0..a3] with a0..a3 at
-    (row, col) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of the m-tile
-    and k-step, then the bias."""
+    conv, its units of one tap (stem conv 1 and the 1x1 shortcut: one),
+    each the big image then the small image [K/4][Co][4] of its K rows,
+    then the bias."""
     out, off = [], 0
     for w, _ in convs:
         co, kc = w.shape
         kp = -(-kc // 8) * 8
+        units = 1 if kc % 16 or kc == 32 else 3
         n = 2 * co * kp
-        frag = flat[off:off + n].reshape(kp // 8, co // 16, 2, 32, 4)
-        halves = []
-        for h in range(2):
-            m = np.zeros((co, kp), np.float32)
-            for lane in range(32):
-                g, t = divmod(lane, 4)
-                for a, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 4), (8, 4)]):
-                    m[g + dr::16, t + dc::8] = frag[:, :, h, lane, a].T
-            halves.append(m)
+        parts = flat[off:off + n].reshape(units, 2, -1)
+        halves = [image_to_w(parts[:, h].reshape(-1), co, kc, kp)
+                  for h in range(2)]
         out.append((halves[0], halves[1], flat[off + n:off + n + co]))
         off += n + co
     assert off == len(flat)

@@ -27,6 +27,9 @@ from hello_tpu_torch.ops import read_conv as rc
 from hello_tpu_torch.ops import read_conv_layout as lay
 
 NB = 2                      # read rows in the modelled block
+#: the files the kernel library is built from
+SOURCES = {"read_conv.cu", "read_conv_wgmma.cuh", "read_conv_wgmma_tf32.cuh",
+           "wgmma_ptx.cuh"}
 
 
 def bf16(x):
@@ -291,5 +294,22 @@ def test_variant_substitutions_apply_to_the_sources(name):
 
     texts = rv.variant_sources(name)
     base = rv.variant_sources("base")
-    assert set(texts) == {"read_conv.cu", "read_conv_wgmma.cuh"}
+    assert set(texts) == SOURCES
     assert (texts != base) == bool(rv.VARIANTS[name][1])
+
+
+@pytest.mark.parametrize("route", ["tf32x3", "tf32"])
+@pytest.mark.parametrize("name", sorted(
+    __import__("hello_tpu_torch.ops.read_conv_variants",
+               fromlist=["TF32_VARIANTS"]).TF32_VARIANTS))
+def test_tf32_variant_substitutions_apply_to_the_sources(name, route):
+    """The TF32 routes' edits find their text in their header, and change
+    nothing else (``base`` nothing at all)."""
+    from hello_tpu_torch.ops import read_conv_variants as rv
+
+    texts = rv.variant_sources(name, route)
+    base = rv.variant_sources("base", route)
+    assert set(texts) == SOURCES
+    changed = {f for f in texts if texts[f] != base[f]}
+    assert changed == ({rv.TF32_SOURCE} if rv.TF32_VARIANTS[name][1]
+                       else set())
