@@ -56,7 +56,19 @@ Phases, each printing one JSON line:
              convolvers, three experts, combiners, meta-expert) on a
              simulated 150 kb Illumina + PacBio genome at 30x each (PacBio
              reads 1500 bp): the kernel's launches for each read convolver
-             (both must be > 0), then the CPU comparison;
+             (both must be > 0), then the CPU comparison; then the same
+             weights folded at bf16, every layer of every network (both read
+             convolvers through their layers, each call of a compressor, the
+             tuple inputs of the xattns, combiners and meta-expert) fed the
+             CPU's own bf16 input on 64 two-platform featurized sites, as
+             configs_path holds the variant configs, the worst layer per
+             network reported;
+  worker_memory  VmRSS and Pss (smaps_rollup, else smaps) of a process,
+             the card hidden from it: a bare interpreter, after ``import
+             torch``, the old calling worker's imports (parallel_call, and
+             through it torch), and a HostWorkerPool worker
+             (pipeline/host_worker.py) with the pool ready, which must map
+             no torch library;
   parallel_path  call_parallel, in-process, with 4 host worker processes and
              100 kb chunks, on a simulated ~600 kb Illumina genome at 30x, at
              the CLI's default precision bf16 on the card: the bf16 route's
@@ -70,6 +82,34 @@ Phases, each printing one JSON line:
              own route only), and the phase reports the card's site flips,
              genotype flips and largest dQ of bf16 and of default against
              highest, from the port's precision sweep compare();
+  bench_packed_path  (after parallel_path) the entry point of python -m
+             hello_tpu_torch.ops.bench_packed, run() and its printed
+             report, at its defaults (1024 sites x 2 alleles with 20 to 60
+             and 10 to 30 reads, hybrid, seeded weights, two coded-wire
+             batches on the card, bf16), then at --precision highest: the
+             packed-row, dense-expand and dense-batch forwards (each
+             launching read_conv_reduce for both read convolvers), each
+             path's windows/s (best median of three windows of 12
+             iterations), the packed ratios, the occupancy, the rows the
+             kernel computes and its launches.  Each path's forward of batch
+             0 is held to the plain path (the layer route for both read
+             convolvers, on packed rows): rtol 1e-4 / atol 1e-4 at highest,
+             check_bf16's worst-site bar on the logits at bf16; the paths
+             agree with each other within rtol 1e-4 / atol 1e-4 at both;
+             the kernel's sums of batch 0 (packed rows and the dense grid,
+             both platforms) held to its plain version by kernel_phase's
+             bar for the route (tf32x3 within 1e-5 of the sums' largest);
+  bench_read_conv_path  the entry point of python -m
+             hello_tpu_torch.ops.bench_read_conv, run() and its printed
+             report, at its defaults (A = 512, R = 128 random reads,
+             illumina, --precision default), then at highest: the layer
+             route against the kernel on the precision's route and on bf16,
+             ms, ratios and shares of the card's peaks of each path's math
+             and of memory; each path's sums of batch 0 held to the
+             kernel's plain version by route (tf32x3 and the fp32 layer
+             route within 1e-5 of the sums' largest magnitude, with tf32's
+             distance as the control; tf32 and bf16 by kernel_phase's
+             bars);
   train_path  dump -> train -> call: a simulated 400 kb Illumina genome at
              30x with 1% substitution and 0.1% indel read errors, dumped with
              the port's dump_region into shards of 80 sites; the first three
@@ -193,13 +233,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(ROOT, "hello_tpu_torch", "ops", "csrc", "mma_probe.cu")
 
-# published peaks (NVIDIA data sheets, dense): fp32 outside the tensor
-# cores, TF32 and bf16 on the tensor cores, and memory bandwidth, by card
-PEAKS = {"SXM": {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12,
-                 "bytes": 3.35e12},
-         "PCIe": {"fp32": 51e12, "tf32": 378e12, "bf16": 756e12,
-                  "bytes": 2.0e12}}
-
 #: read-conv kernel routes: tensor-core passes per product, their peak and
 #: the probe that measures their instruction's rate
 ROUTES = {"tf32x3": (3, "tf32", "mma_tf32_probe"),
@@ -237,7 +270,14 @@ def emit(obj):
 
 
 def card_peaks(name):
-    return PEAKS["PCIe" if "PCIe" in name else "SXM"]
+    """The card's published peaks (ops/bench_read_conv.CARD_PEAKS: fp32
+    outside the tensor cores, TF32 and bf16 on them, and memory), in FLOP/s
+    and bytes/s."""
+    from hello_tpu_torch.ops.bench_read_conv import card_peaks as peaks
+
+    p = peaks(name)
+    return {"fp32": p["fp32"] * 1e12, "tf32": p["tf32"] * 1e12,
+            "bf16": p["bf16"] * 1e12, "bytes": p["hbm_gbs"] * 1e9}
 
 
 def macs_per_row(channels, co=None):
@@ -941,6 +981,17 @@ def hybrid_path_phase(workdir):
     cpu, cpu_s = call_on_cpu("hybrid", scorer, bams, ds.fasta,
                              os.path.join(workdir, "cpu.vcf"))
     worst = compare_records(card, cpu)
+    # every hybrid network at bf16, layer by layer, with a model folded at
+    # bf16 (the same seeded weights)
+    set_precision("bf16")
+    t0 = time.perf_counter()
+    bf16_model = load_scorer("hybrid", seed=0)
+    if set(bf16_model.read_conv_routes().values()) != {"bf16"}:
+        raise AssertionError(f"the bf16 hybrid's routes "
+                             f"{bf16_model.read_conv_routes()}")
+    layers_bf16 = bf16_layers_card_vs_cpu("hybrid", bf16_model.model, ds)
+    layers_bf16["seconds"] = time.perf_counter() - t0
+    set_precision("highest")
     emit({"phase": "hybrid_path", "model": "hybrid",
           "genome_bp": HYBRID_GENOME_BP, "coverage": COVERAGE,
           "pacbio_read_length": 1500, "sim_seconds": sim_s,
@@ -949,7 +1000,8 @@ def hybrid_path_phase(workdir):
           "read_conv_reduce_launches": launches, "stages": stages,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
-          "qual_at_max_diff": worst[1]})
+          "qual_at_max_diff": worst[1],
+          "layers_card_vs_cpu_bf16": layers_bf16})
     return launches, ds
 
 
@@ -1081,6 +1133,389 @@ def parallel_path_phase(workdir):
           "cpu_bf16_vs_cpu_highest": cpu_bf16_vs_highest,
           "card_sweep_vs_highest": sweep})
     return launches, ds
+
+
+# the modules a calling worker held before its loop moved to
+# pipeline/host_worker.py: its module (parallel_call, which imports torch
+# through pipeline/call) and the host stages it imported eagerly
+OLD_WORKER_MODULES = ("hello_tpu_torch.pipeline.parallel_call",
+                      "hello_tpu_torch.pipeline.candidates",
+                      "hello_tpu_torch.pipeline.hotspots")
+
+
+# a process that imports the modules named in argv[1] (comma-separated; and
+# loads the native engine if argv[2] is 1), reports its pid and waits
+_MEMORY_PROBE = """
+import importlib, os, sys
+for name in filter(None, sys.argv[1].split(",")):
+    importlib.import_module(name)
+if sys.argv[2] == "1":
+    from hello_tpu_torch import native
+    native.load_library()
+print(os.getpid(), flush=True)
+sys.stdin.readline()
+"""
+
+
+def _proc_memory(pid):
+    """A process's VmRSS (``/proc/<pid>/status``) and its smaps_rollup
+    (``Pss`` splits shared library pages among the processes mapping them;
+    ``Private_*`` is the process's own), in MB, and whether it maps torch."""
+    out = {}
+    with open(f"/proc/{pid}/status") as fh:
+        for line in fh:
+            key, _, value = line.partition(":")
+            if key in ("VmRSS", "RssAnon", "RssFile", "RssShmem"):
+                out[f"{key}_mb"] = int(value.split()[0]) / 1024
+    rollup = f"/proc/{pid}/smaps_rollup"
+    path = rollup if os.path.exists(rollup) else f"/proc/{pid}/smaps"
+    sums = {}
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) == 3 and parts[2] == "kB" and parts[0].endswith(":"):
+                key = parts[0][:-1]
+                sums[key] = sums.get(key, 0) + int(parts[1])
+    for key in ("Rss", "Pss", "Pss_Anon", "Pss_File", "Shared_Clean",
+                "Shared_Dirty", "Private_Clean", "Private_Dirty"):
+        if key in sums:
+            out[f"{key}_mb"] = sums[key] / 1024
+    out["smaps"] = os.path.basename(path)
+    with open(f"/proc/{pid}/maps") as fh:
+        out["maps_torch"] = any("libtorch" in line for line in fh)
+    return out
+
+
+def worker_memory_phase(name, smi):
+    """A process's VmRSS and Pss, the card hidden from it, after a bare
+    interpreter, after ``import torch``, after the old calling worker's
+    imports (its module parallel_call, and through it torch), and of a
+    HostWorkerPool worker (pipeline/host_worker.py, spawned) with the pool
+    ready, which must hold no torch."""
+    from hello_tpu_torch.pipeline.parallel_call import HostWorkerPool
+
+    t0 = time.perf_counter()
+    readings = {}
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
+    for tag, modules, native in (("bare_interpreter", (), False),
+                                 ("import_torch", ("torch",), False),
+                                 ("old_worker_module", OLD_WORKER_MODULES,
+                                  True)):
+        with subprocess.Popen(
+                [sys.executable, "-c", _MEMORY_PROBE, ",".join(modules),
+                 str(int(native))], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, text=True, env=env) as proc:
+            try:
+                readings[tag] = _proc_memory(int(proc.stdout.readline()))
+            finally:
+                proc.stdin.close()
+                proc.wait(timeout=60)
+        if proc.returncode != 0:
+            raise AssertionError(f"worker_memory: the {tag} probe exited "
+                                 f"{proc.returncode}")
+    with HostWorkerPool(1) as pool:
+        pool.wait_ready()
+        (ready,) = pool.ready
+        readings["host_worker_pool_ready"] = _proc_memory(ready["pid"])
+    new = readings["host_worker_pool_ready"]
+    if ready["torch"] or new["maps_torch"]:
+        raise AssertionError(f"the calling worker imports torch: {ready}, "
+                             f"{new}")
+    emit({"phase": "worker_memory", "card": name, "nvidia_smi": smi,
+          "readings": readings, "seconds": time.perf_counter() - t0})
+    return readings
+
+
+# bench_packed_path: hello_tpu_torch.ops.bench_packed.run at its defaults,
+# then at highest
+BENCH_PACKED_ARGVS = ([], ["--precision", "highest"])
+# bench_read_conv_path: hello_tpu_torch.ops.bench_read_conv.run at its
+# defaults (--precision default), then at highest
+BENCH_READ_CONV_ARGVS = ([], ["--precision", "highest"])
+# the tf32x3 kernel's bar on the benches' summed reads: 1e-5 of the fp32
+# sums' largest magnitude (20 to 128 reads of an allele are summed, so
+# elements near 0 are cancellations of terms near the largest; fp32 against
+# fp32 on the CPU differs by 5e-7 of it)
+BENCH_TF32X3_OF_LARGEST = 1e-5
+
+
+def _against_plain(got, kernel_rows, net, route):
+    """``got``, per-allele sums of ``route`` over ``kernel_rows`` (rows,
+    row_allele, row_valid, A), against the kernel's plain version of the
+    same rows and weights, by kernel_phase's bar for the route: tf32x3 (and
+    the fp32 layer route, "highest") within BENCH_TF32X3_OF_LARGEST of the
+    fp32 sums' largest magnitude; tf32 at most 2x cuDNN's own TF32 distance
+    from fp32; bf16 at most 0.25x the plain bf16 version's distance from
+    fp32; the layer route at default (cuDNN's TF32) is reported only.
+    Returns the readings; raises where the bar fails."""
+    import torch
+
+    from hello_tpu_torch.ops import read_conv as rc
+
+    rows, row_allele, row_valid, A = kernel_rows
+    plain = lambda r, tf32: _plain(rows, row_allele, row_valid,
+                                   rc.fold_read_conv_weights(net, r), A,
+                                   tf32=tf32)
+    exact = plain("tf32x3", False)
+    largest = float(exact.abs().max())
+    err = float((got - exact).abs().max())
+    entry = {"fp32_sums_largest": largest, "vs_fp32_max_abs": err,
+             "vs_fp32_over_largest": err / largest}
+    if route == "default":
+        ok = True
+    elif route in ("tf32x3", "highest"):
+        ok = err <= BENCH_TF32X3_OF_LARGEST * largest
+        entry["bar"] = "vs_fp32_max_abs <= 1e-5 * fp32_sums_largest"
+    elif route == "tf32":
+        cudnn = float((plain("tf32", True) - exact).abs().max())
+        ok = err <= 2 * cudnn
+        entry.update(cudnn_tf32_vs_fp32_max_abs=cudnn,
+                     bar="vs_fp32_max_abs <= 2 * cudnn_tf32_vs_fp32_max_abs")
+    else:
+        want = plain("bf16", False)
+        entry.update(vs_plain_max_abs=float((got - want).abs().max()),
+                     plain_bf16_vs_fp32_max_abs=float(
+                         (want - exact).abs().max()),
+                     bar="vs_plain_max_abs <= 0.25 * "
+                         "plain_bf16_vs_fp32_max_abs")
+        ok = entry["vs_plain_max_abs"] <= \
+            0.25 * entry["plain_bf16_vs_fp32_max_abs"]
+    if not (ok and torch.isfinite(got).all()):
+        raise AssertionError(f"route {route} disagrees with the plain "
+                             f"version: {entry}")
+    return entry
+
+
+def _winners(experts, real, sites):
+    """{(site, expert): the row of the site's allele with the largest logit
+    under the expert}, over the real alleles."""
+    e = experts[real]
+    best = {}
+    for row, (site, logits) in enumerate(zip(sites[real], e)):
+        for k, v in enumerate(logits):
+            if (site, k) not in best or v > e[best[(site, k)], k]:
+                best[(site, k)] = row
+    return best
+
+
+def _forward_distance(got, ref, real, sites):
+    """(experts, meta) against ``ref``'s: the experts' largest and median
+    distance over the real alleles, the meta weights' largest, and the
+    (site, expert) pairs whose winning allele moved."""
+    import numpy as np
+
+    d = np.abs(got[0] - ref[0])[real]
+    want = _winners(ref[0], real, sites)
+    have = _winners(got[0], real, sites)
+    return {"experts_max": float(d.max()),
+            "experts_median": float(np.median(d)),
+            "meta_max": float(np.abs(got[1] - ref[1]).max()),
+            "winner_flips": sum(have[k] != v for k, v in want.items()),
+            "pairs": len(want)}
+
+
+def _forward_against_plain(kernel, plain, version, real, sites):
+    """The three paths' bf16 forwards (the kernel's) against the plain
+    path's bf16 forward (the layer route on packed rows).  A bf16 forward
+    is chaotic in the order of its fp32 sums (check_bf16), so a whole
+    forward is held by check_bf16's worst-site bar alone: each path's
+    experts and meta weights within 2x of the plain path's own
+    bf16-against-highest distance, which no launch of the kernel enters;
+    the median distance and the winning alleles moved are reported, beside
+    the same readings of a forward with no kernel in it either: the
+    kernel's plain version in the kernel's place (``version``) against the
+    layer route.  The kernel's sums themselves are held to its plain
+    version (_against_plain) in bench_packed_path."""
+    import numpy as np
+
+    ref = plain["bf16"]
+    own = _forward_distance(ref, plain["highest"], real, sites)
+    out = {"plain_bf16_vs_highest": own,
+           "control_plain_version_vs_plain": _forward_distance(
+               version["bf16"], ref, real, sites),
+           "packed_vs_plain_version": _forward_distance(
+               kernel["bf16"]["packed"], version["bf16"], real, sites)}
+    for path, got in kernel["bf16"].items():
+        line = _forward_distance(got, ref, real, sites)
+        if not (np.isfinite(got[0]).all() and np.isfinite(got[1]).all()) or (
+                line["experts_max"] > 2 * own["experts_max"]
+                or line["meta_max"] > 2 * own["meta_max"]):
+            raise AssertionError(f"bench_packed_path at bf16: {path} against "
+                                 f"the plain path {line}, the plain path's "
+                                 f"bf16 against highest {own}")
+        out[path] = line
+    return out
+
+
+def bench_packed_path_phase():
+    """hello_tpu_torch.ops.bench_packed.run on the card at its defaults
+    (1024 sites x 2 alleles, 20 to 60 reads, hybrid, bf16), then at
+    highest, its report printed as its main prints it.  Each path's
+    forward of batch 0 (from the counted run) is held to the plain path,
+    the same model with both read convolvers on the layer route, on packed
+    rows (no launch of the kernel): rtol 1e-4 / atol 1e-4 at highest,
+    _forward_against_plain at bf16, beside a second kernel-free forward
+    for its control (the kernel's plain version in the kernel's place).  The dense paths agree with the packed
+    one within rtol 1e-4 / atol 1e-4 at both precisions: they differ only in
+    the order of the per-allele fp32 sums.  Then the kernel's sums of batch
+    0, packed rows and the dense grid, each platform, are held to its plain
+    version (_against_plain).  Returns ({route: {path: launches}}, {route:
+    the launches of that check})."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn import moe
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.nn.moe import LayerRoute
+    from hello_tpu_torch.ops import bench_packed as bp
+    from hello_tpu_torch.ops import bench_read_conv as br
+    from hello_tpu_torch.ops import read_conv as rc
+
+    t_phase = time.perf_counter()
+    kernel, plain, version, legs, launches = {}, {}, {}, {}, {}
+    agreement, sums, checks = {}, {}, {}
+    for argv in BENCH_PACKED_ARGVS:
+        result = bp.run(argv)
+        bp.report(result)
+        precision = result["precision"]
+        route = rc.route_for_precision(precision)
+        for path in bp.PATHS:
+            by_route = result["paths"][path]["launches_by_route"]
+            if by_route[route] <= 0 or sum(by_route.values()) != \
+                    by_route[route]:
+                raise AssertionError(f"bench_packed_path at {precision}, "
+                                     f"{path}: launches {by_route}, only "
+                                     f"route {route} may run")
+            launches.setdefault(route, {})[path] = by_route[route]
+        inputs = result["inputs"]
+        model, batch0 = inputs["model"], inputs["batches"][:1]
+        kernel[precision] = {p: tuple(t.numpy() for t in out)
+                             for p, out in result["outputs"].items()}
+        rc.reset_launches()
+        layer_routes = {name: LayerRoute() for name in inputs["folded"]}
+        (wire,) = bp.path_batches("packed", batch0)
+        plain[precision] = tuple(t.cpu().numpy() for t in bp.forward(
+            model, layer_routes, "packed", wire))
+        with mock.patch.object(moe, "read_conv_reduce",
+                               rc.read_conv_reduce_reference):
+            version[precision] = tuple(t.cpu().numpy() for t in bp.forward(
+                model, inputs["folded"], "packed", wire))
+        if sum(rc.read_conv_reduce.launches_by_route.values()):
+            raise AssertionError("bench_packed_path: a plain forward "
+                                 "launched the kernel")
+        got = agreement.setdefault(precision, {})
+        for path, out in kernel[precision].items():
+            pairs = ([] if path == "packed" else
+                     [(f"{path}_vs_packed", out, kernel[precision]["packed"])])
+            if precision == "highest":
+                pairs.append((f"{path}_vs_plain", out, plain[precision]))
+            for tag, a, b in pairs:
+                for i, what in enumerate(("experts", "meta")):
+                    err = float(np.abs(a[i] - b[i]).max())
+                    got[f"{tag}_{what}_max_abs"] = err
+                    if not (np.isfinite(a[i]).all() and np.allclose(
+                            a[i], b[i], rtol=1e-4, atol=1e-4)):
+                        raise AssertionError(
+                            f"bench_packed_path at {precision}: {tag}'s "
+                            f"{what} differ by {err}")
+        with torch.inference_mode():
+            for path in ("packed", "dense_batch"):
+                (batch,) = bp.path_batches(path, batch0)
+                x = bp.expand(path, batch)
+                for k in (0, 1):
+                    rows = ((x[f"rows{k}"], x[f"row_allele{k}"],
+                             x[f"row_valid{k}"].float(),
+                             x[f"read_mask{k}"].shape[0])
+                            if f"rows{k}" in x else
+                            br.kernel_inputs(x[f"reads{k}"],
+                                             x[f"read_mask{k}"]))
+                    folded = inputs["folded"][f"read_conv{k}"]
+                    try:
+                        sums.setdefault(precision, {})[f"{path}{k}"] = \
+                            _against_plain(rc.read_conv_reduce(*rows[:3],
+                                                               folded,
+                                                               rows[3]),
+                                           rows, model.net(f"read_conv{k}"),
+                                           route)
+                    except AssertionError as e:
+                        raise AssertionError(f"bench_packed_path at "
+                                             f"{precision}, {path}, platform "
+                                             f"{k}: {e}") from None
+        checks[route] = rc.read_conv_reduce.launches_by_route[route]
+        real = wire["allele_mask"].cpu().numpy() > 0
+        sites = wire["site_ids"].cpu().numpy()
+        legs[precision] = {k: v for k, v in result.items()
+                           if k not in ("inputs", "outputs")}
+        del result, inputs, model, batch0, wire, x, rows
+        torch.cuda.empty_cache()
+    set_precision("highest")
+    agreement["bf16"]["against_plain"] = _forward_against_plain(
+        kernel, plain, version, real, sites)
+    emit({"phase": "bench_packed_path", "legs": legs,
+          "agreement": agreement, "sums_against_plain": sums,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, checks
+
+
+def bench_read_conv_path_phase():
+    """hello_tpu_torch.ops.bench_read_conv.run on the card at its defaults
+    (A = 512, R = 128 random reads, illumina, --precision default), then at
+    highest, its report printed as its main prints it: each route of the
+    kernel timed against the layer route on the card's own peaks.  Each
+    path's sums of batch 0 (from the counted run) are then held to the
+    kernel's plain version of the same rows (_against_plain).  The tf32
+    route's distance from fp32 over the sums' largest magnitude is the
+    control of the tf32x3 bar.  Returns {precision: {route: launches}}."""
+    import torch
+
+    from hello_tpu_torch.ops import bench_read_conv as br
+    from hello_tpu_torch.ops import read_conv as rc
+
+    t_phase = time.perf_counter()
+    legs, launches, checks = {}, {}, {}
+    for argv in BENCH_READ_CONV_ARGVS:
+        rc.reset_launches()
+        result = br.run(argv)
+        by_route = dict(rc.read_conv_reduce.launches_by_route)
+        br.report(result)
+        precision = result["precision"]
+        routes = [line["route"] for line in result["paths"]
+                  if line["kind"] == "kernel"]
+        if min(by_route[r] for r in routes) <= 0 or \
+                sum(by_route.values()) != sum(by_route[r] for r in routes):
+            raise AssertionError(f"bench_read_conv_path at {precision}: "
+                                 f"launches {by_route} for routes {routes}")
+        launches[precision] = {r: by_route[r] for r in routes}
+        rows = br.kernel_inputs(*result["inputs"]["batches"][0])
+        net = result["inputs"]["model"].net("read_conv0")
+        checks[precision] = {}
+        for line in result["paths"]:
+            try:
+                checks[precision][line["tag"]] = _against_plain(
+                    result["outputs"][line["tag"]], rows, net, line["route"])
+            except AssertionError as e:
+                raise AssertionError(f"bench_read_conv_path at {precision}, "
+                                     f"{line['tag']}: {e}") from None
+        if dict(rc.read_conv_reduce.launches_by_route) != by_route:
+            raise AssertionError("bench_read_conv_path: the plain versions "
+                                 "launched the kernel")
+        legs[precision] = {"paths": result["paths"],
+                           "launches_by_route": by_route}
+        peaks, size = result["peaks"], {"A": result["A"], "R": result["R"]}
+        del result, rows
+        torch.cuda.empty_cache()
+    emit({"phase": "bench_read_conv_path", **size, "peaks": peaks,
+          "legs": legs, "against_plain": checks,
+          "tf32x3_bar_control": {
+              "tf32_vs_fp32_over_largest":
+                  checks["default"]["kernel tf32"]["vs_fp32_over_largest"],
+              "bar": BENCH_TF32X3_OF_LARGEST},
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def _swap_check(trained, sites):
@@ -2017,31 +2452,46 @@ def layer_route_ms(kernel_line):
 
 def bf16_layers_card_vs_cpu(name, card_model, ds):
     """The bf16 cast points on the card, layer by layer: every layer of
-    every network of ``card_model``, fed the CPU's own bf16 input to that
-    layer (recorded from a CPU forward of the same weights on featurized
-    sites of ``ds``), gives the CPU's output: bf16 where the CPU's is bf16,
-    equal but for at most 0.2% of the values, each within two bf16 ulps of
-    the layer's largest value (a conv sum that two fp32 orders round to
+    every network of ``card_model``, at every call of the network, fed the
+    CPU's own bf16 input to that layer (recorded from a CPU forward of the
+    same weights on featurized sites of ``ds``: two-platform sites for a
+    hybrid, whose read convolvers the CPU forward runs through their
+    layers), gives the CPU's output: bf16 where the CPU's is bf16, equal but
+    for at most 0.2% of the values, each within two bf16 ulps of the
+    layer's largest value (a conv sum that two fp32 orders round to
     neighbouring bf16 values, and what that moves inside the layer), as
     tests/test_torch_precision.py holds the port to hello_tpu.  Where no
     cascade can form, this tells a wrong cast point from the chaos of whole
     bf16 forwards.  fp32 outputs (Linear logits: TF32 on the card) are
-    reported, not held.  Returns the worst layer's numbers."""
+    reported, not held.  Every network must be held.  Returns the worst
+    layer's numbers, overall and per network."""
     from hello_tpu_torch.nn.moe import create_model
     from hello_tpu_torch.pipeline.bf16_conv_check import (featurized_batch,
                                                           layers_against_cpu)
 
-    batch, sites = featurized_batch(ds, LAYER_CHECK_SITES)
+    batch, sites = featurized_batch(ds, LAYER_CHECK_SITES,
+                                    hybrid=card_model.hybrid)
     cpu_model = create_model(name)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                card_model.state_dict().items()})
     cpu_model.eval()
     worst = {"differ_share": 0.0, "max_diff_over_layer_max": 0.0,
-             "fp32_max_rel": 0.0, "sites": sites}
-    for line in layers_against_cpu(cpu_model, card_model, batch):
-        what = f"{name} {line['net']} layer {line['layer']} ({line['type']})"
+             "fp32_max_rel": 0.0, "sites": sites, "by_net": {}}
+    lines = layers_against_cpu(cpu_model, card_model, batch)
+    held = {line["net"] for line in lines}
+    if held != set(card_model.networks()):
+        raise AssertionError(f"{name}: layers held of {sorted(held)}, not "
+                             f"every network {sorted(card_model.networks())}")
+    for line in lines:
+        what = (f"{name} {line['net']} call {line['call']} layer "
+                f"{line['layer']} ({line['type']})")
+        net = worst["by_net"].setdefault(line["net"], {
+            "differ_share": 0.0, "max_diff_over_layer_max": 0.0,
+            "fp32_max_rel": 0.0, "calls": 0})
+        net["calls"] = max(net["calls"], line["call"] + 1)
         if "fp32_max_rel" in line:
-            worst["fp32_max_rel"] = max(worst["fp32_max_rel"],
+            for w in (worst, net):
+                w["fp32_max_rel"] = max(w["fp32_max_rel"],
                                         line["fp32_max_rel"])
             continue
         share, diff = line["differ_share"], line["max_diff_over_layer_max"]
@@ -2051,9 +2501,10 @@ def bf16_layers_card_vs_cpu(name, card_model, ds):
                 f"{what}: card {line['card_dtype']}, {share:.4%} of values "
                 f"differ from the CPU's, largest by {diff:.3e} of the "
                 f"layer's largest (at most 0.2%, two bf16 ulps: 2^-6)")
-        worst["differ_share"] = max(worst["differ_share"], share)
-        worst["max_diff_over_layer_max"] = max(
-            worst["max_diff_over_layer_max"], diff)
+        for w in (worst, net):
+            w["differ_share"] = max(w["differ_share"], share)
+            w["max_diff_over_layer_max"] = max(
+                w["max_diff_over_layer_max"], diff)
     return worst
 
 
@@ -2399,8 +2850,11 @@ def main():
         hybrid, hybrid_ds = hybrid_path_phase(os.path.join(workdir, "hybrid"))
         wrapper = wrapper_path_phase(os.path.join(workdir, "wrapper"), ds,
                                      card)
+        worker_memory_phase(name, smi)
         parallel, parallel_ds = parallel_path_phase(
             os.path.join(workdir, "parallel"))
+        bench_packed, bench_packed_checks = bench_packed_path_phase()
+        bench_read_conv = bench_read_conv_path_phase()
         configs_path_phase(os.path.join(workdir, "configs"), ds, hybrid_ds,
                            parallel_ds, lines[0])
         trained, validation, shards = train_path_phase(
@@ -2418,9 +2872,17 @@ def main():
                    "train_path": trained,
                    "train_path_validation": validation,
                    "ddp_path_validation": ddp, "trace_path": traced,
-                   "dryrun": dryrun, "demo_path": demo},
-        "tf32": {"parallel_path_default": parallel["tf32"]},
-        "bf16": {"parallel_path": parallel["bf16"], "soak_path": soak},
+                   "dryrun": dryrun, "demo_path": demo,
+                   "bench_packed_path_highest": bench_packed["tf32x3"],
+                   "bench_read_conv_path_highest":
+                       bench_read_conv["highest"]["tf32x3"]},
+        "tf32": {"parallel_path_default": parallel["tf32"],
+                 "bench_read_conv_path_default":
+                     bench_read_conv["default"]["tf32"]},
+        "bf16": {"parallel_path": parallel["bf16"], "soak_path": soak,
+                 "bench_packed_path": bench_packed["bf16"],
+                 "bench_read_conv_path": sum(
+                     v["bf16"] for v in bench_read_conv.values())},
     }
     kernels = []
     for route in ROUTES:
@@ -2437,6 +2899,10 @@ def main():
             "launches": sum(v if isinstance(v, int) else sum(v.values())
                             for v in paths.values()),
             "launches_by_path": paths,
+            # launches that hold the kernel to its plain version, apart
+            # from the paths' runs
+            "check_launches": {"bench_packed_path_vs_plain":
+                                   bench_packed_checks.get(route, 0)},
             "max_abs_err": max(k6["max_abs_err"], k7["max_abs_err"]),
             "ms": k6["ms"], "plain_ms": k6["plain_ms"],
             "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],

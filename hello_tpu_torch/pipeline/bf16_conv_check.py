@@ -47,9 +47,11 @@ import torch
 LAYER_SITES = 64
 
 
-def featurized_batch(ds, n_sites=LAYER_SITES):
-    """A packed single-tech batch (CPU tensors) of the first ``n_sites``
-    candidate sites with alleles in the first 100 kb of ``ds``."""
+def featurized_batch(ds, n_sites=LAYER_SITES, hybrid=False):
+    """A packed batch (CPU tensors) of the first ``n_sites`` candidate sites
+    with alleles in the first 100 kb of ``ds``: single-tech from its
+    Illumina BAM, or with ``hybrid`` two-platform from its Illumina and
+    PacBio BAMs, as the hybrid caller featurizes and packs them."""
     from ..io.fasta import FastaFile
     from .batching import pack_sites
     from .candidates import native_chunk_site_work
@@ -57,13 +59,14 @@ def featurized_batch(ds, n_sites=LAYER_SITES):
     options = dict(pacbio=False, include_hp=False, hybrid_hotspot=False,
                    q_threshold=10, min_mapq=10, reassembly_size=10,
                    feature_length=150, wire="dense")
+    bams = [ds.bams["illumina"]] + ([ds.bams["pacbio"]] if hybrid else [])
     ref = FastaFile(ds.fasta)
     sites = native_chunk_site_work(
-        [ds.bams["illumina"]], ref, ds.chromosome, 0,
+        bams, ref, ds.chromosome, 0,
         min(ref.length(ds.chromosome), 100_000), options, random.Random(13))
     sites = [s for s in sites if s.alleles][:n_sites]
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
-             pack_sites(sites, hybrid=False).device_dict().items()}
+             pack_sites(sites, hybrid=hybrid).device_dict().items()}
     return batch, len(sites)
 
 
@@ -82,51 +85,68 @@ def _to(x, device):
 def layers_against_cpu(cpu_model, card_model, batch):
     """Every layer of every network of ``card_model``, fed the input that
     layer gets in a CPU forward of ``cpu_model`` (the same weights) on
-    ``batch``, against the CPU layer's output: one dict per layer with
-    the output dtypes, and for bf16 outputs ``differ_share`` and
-    ``max_diff_over_layer_max``, for fp32 outputs ``fp32_max_rel``."""
+    ``batch``, against the CPU layer's output: one dict per layer and call
+    with the output dtypes, and for bf16 outputs ``differ_share`` and
+    ``max_diff_over_layer_max``, for fp32 outputs ``fp32_max_rel``.
+
+    The CPU forward takes the layer route for every read convolver, so the
+    read convolvers' layers are held too (the kernel exposes none).  Every
+    call of a network is held (``call`` counts them: a compressor runs its
+    allele pass, then its site pass), with its whole input, tuples and all
+    (the xattns, combiners and meta-expert take tuples)."""
+    from ..nn.moe import LayerRoute
+
     inputs, handles = {}, []
 
     def record(net_name):
         def hook(module, args):
-            inputs.setdefault(net_name, args[0])
+            inputs.setdefault(net_name, []).append(args[0])
         return hook
 
     for net_name, net in cpu_model.networks().items():
         handles.append(net.register_forward_pre_hook(record(net_name)))
+    layer_routes = {name: LayerRoute() for name in ("read_conv0", "read_conv1")
+                    if cpu_model.net(name) is not None}
     try:
         with torch.inference_mode():
-            cpu_model(batch)
+            cpu_model(batch, folded=layer_routes)
     finally:
         for h in handles:
             h.remove()
     device = next(card_model.parameters()).device
     out = []
     with torch.inference_mode():
-        for net_name, x in inputs.items():
-            for i, (cpu_layer, card_layer) in enumerate(zip(
-                    cpu_model.net(net_name).network,
-                    card_model.net(net_name).network, strict=True)):
-                y = cpu_layer(x)
-                t = card_layer(_to(x, device))
-                for want, got in zip(_leaves(y), _leaves(t), strict=True):
-                    w = want.float().numpy()
-                    g = got.float().cpu().numpy()
-                    scale = float(np.abs(w).max()) or 1.0
-                    line = {"net": net_name, "layer": i,
-                            "type": type(cpu_layer).__name__,
-                            "cpu_dtype": str(want.dtype),
-                            "card_dtype": str(got.dtype)}
-                    if want.dtype == torch.bfloat16:
-                        line.update(
-                            differ_share=float((g != w).mean()),
-                            max_diff_over_layer_max=float(
-                                np.abs(g - w).max()) / scale)
-                    else:
-                        line["fp32_max_rel"] = float(
-                            np.abs(g - w).max()) / scale
-                    out.append(line)
-                x = y
+        for net_name, calls in inputs.items():
+            for call, x in enumerate(calls):
+                out += _layers_of_call(cpu_model, card_model, net_name, call,
+                                       x, device)
+    return out
+
+
+def _layers_of_call(cpu_model, card_model, net_name, call, x, device):
+    out = []
+    for i, (cpu_layer, card_layer) in enumerate(zip(
+            cpu_model.net(net_name).network,
+            card_model.net(net_name).network, strict=True)):
+        y = cpu_layer(x)
+        t = card_layer(_to(x, device))
+        for want, got in zip(_leaves(y), _leaves(t), strict=True):
+            w = want.float().numpy()
+            g = got.float().cpu().numpy()
+            scale = float(np.abs(w).max()) or 1.0
+            line = {"net": net_name, "call": call, "layer": i,
+                    "type": type(cpu_layer).__name__,
+                    "cpu_dtype": str(want.dtype),
+                    "card_dtype": str(got.dtype)}
+            if want.dtype == torch.bfloat16:
+                line.update(
+                    differ_share=float((g != w).mean()),
+                    max_diff_over_layer_max=float(
+                        np.abs(g - w).max()) / scale)
+            else:
+                line["fp32_max_rel"] = float(np.abs(g - w).max()) / scale
+            out.append(line)
+        x = y
     return out
 
 

@@ -8,7 +8,8 @@ chunk's sites back on the coded wire as one ``CodedChunkBlock``; the main
 process owns the card: it packs batches, dispatches them through
 ``Scorer.score_async(decode=True)`` (pinned uploads, an event after the
 results' copies) and decodes behind the device.  Workers never touch the
-card: it is hidden from them before they start (``_spawn_env``).
+card: it is hidden from them before they start (``_spawn_env``), and
+their loop lives in ``host_worker``, which imports no torch.
 Multi-host scale-out hands each host a share of the regions
 (``parallel.mesh.shard_regions``); the per-host VCFs merge at the end.
 
@@ -23,8 +24,10 @@ import contextlib
 import logging
 import multiprocessing as mp
 import os
+import sys
 import threading
 import time
+import types
 from typing import List, Optional, Sequence, Tuple
 
 from ..constants import FEATURE_LENGTH
@@ -33,140 +36,27 @@ from ..io.vcf import VcfRecord, write_vcf
 from ..nn.genotype import decode_batch
 from .batching import CodedSiteWork, group_sites_for_batching, pack_sites
 from .call import Scorer, vcf_record_from_call
-from .candidates import generate_sites
-from .hotspots import (candidate_intervals, cluster_hotspots, detect_hotspots,
-                       make_read_sources)
+# the worker's loop and host stages live in a module that imports no torch
+from .host_worker import _SENTINEL, _worker, host_sites_for_chunk  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
-_SENTINEL = "__done__"
 
-# per-process FastaFile cache: a worker serves thousands of chunk jobs for
-# the same reference; reopening per job would re-read the .fai (or, absent
-# one, re-scan the whole FASTA) every time
-_FASTA_CACHE: dict = {}
-
-
-def _cached_fasta(path: str) -> FastaFile:
-    key = (path, os.path.getmtime(path))
-    if key not in _FASTA_CACHE:
-        _FASTA_CACHE.clear()        # one reference per run; drop stale entries
-        _FASTA_CACHE[key] = FastaFile(path)
-    return _FASTA_CACHE[key]
-
-
-def host_sites_for_chunk(bam_paths, ref_path, chromosome, start, stop,
-                         options) -> List:
-    """Host-side stages for one genome chunk; returns SiteWork list."""
-    import random
-
-    # fault injection for recovery tests: the first chunk to observe a
-    # missing marker file creates it and fails (a transient, once-only fault)
-    marker = options.get("fail_once_marker")
-    if marker and not os.path.exists(marker):
-        open(marker, "w").close()
-        raise RuntimeError("injected transient fault")
-
-    ref = _cached_fasta(ref_path)
-    rng = random.Random(options.get("seed", 13))
-
-    # fast path: the entire chunk pipeline in one native call (identical
-    # output to the staged pipeline below — see tests/test_native_chunk.py)
-    from .candidates import native_chunk_site_work
-    fast = native_chunk_site_work([str(p) for p in bam_paths], ref,
-                                  chromosome, start, stop, options, rng)
-    if fast is not None:
-        return _maybe_encode(fast, options)
-
-    pacbio = options.get("pacbio", False)
-    kwargs = dict(
-        pacbio=pacbio,
-        hybrid_hotspot=options.get("hybrid_hotspot", False),
-        q_threshold=options.get("q_threshold", 10),
-        min_mapq=options.get("min_mapq", 10),
-    )
-    hotspot_sources = make_read_sources(bam_paths, pacbio, for_hotspots=True,
-                                        rng=rng, region=(chromosome, start, stop))
-    positions = detect_hotspots(hotspot_sources, ref, chromosome, start, stop,
-                                **kwargs)
-    if not positions:
-        return []
-    active = cluster_hotspots(positions)
-    sources = make_read_sources(bam_paths, pacbio, rng=rng,
-                                region=(chromosome, start, stop))
-    intervals, windows = candidate_intervals(
-        sources, ref, chromosome, active,
-        include_hp=options.get("include_hp", False),
-        reassembly_size=options.get("reassembly_size", 10),
-        provide_windows=True, **kwargs)
-    sites = [s for s in generate_sites(
-        sources, ref, chromosome, intervals, windows=windows,
-        include_hp=options.get("include_hp", False),
-        feature_length=options.get("feature_length", FEATURE_LENGTH),
-        reassembly_size=options.get("reassembly_size", 10),
-        pacbio=pacbio,
-        hybrid_hotspot=options.get("hybrid_hotspot", False),
-        q_threshold=options.get("q_threshold", 10),
-        min_mapq=options.get("min_mapq", 10))
-        if s is not None and s.alleles]
-    return _maybe_encode(sites, options)
-
-
-def _maybe_encode(sites, options):
-    """Re-encode a chunk's sites into the 1-byte coded wire representation
-    (CodedSiteWork) when the run requested it: ~6x less worker->main IPC and
-    no dense batch assembly in the device-owning process.  The native chunk
-    orchestrator usually emits CodedSiteWork directly (code-on-copy, no
-    dense tensors at all) — this pass covers the staged Python pipeline and
-    falls back to the dense list if any site cannot be coded (never true of
-    featurizer output)."""
-    if hasattr(sites, "to_sites"):      # CodedChunkBlock: already coded
-        return sites
-    if options.get("wire") == "coded" and sites \
-            and not isinstance(sites[0], CodedSiteWork):
-        from .compact import encode_chunk_sites
-        coded = encode_chunk_sites(sites)
-        if coded is not None:
-            return coded
-    return sites
-
-
-def _worker(job_queue, result_queue):
-    """Worker loop: consume (run_id, bam_paths, ref_path, options, chrom,
-    start, stop) jobs, emit (status, run_id, region, payload) messages.
-    Workers are generic (the job carries the data sources) so one pool serves
-    a whole run; per-process BAM/index caches are keyed by path and persist
-    across jobs."""
-    # eager imports: charge module-import cost (torch + the port, seconds)
-    # to pool startup, not to the first job
-    from . import candidates as _c, hotspots as _h  # noqa: F401
-    from .. import native as _n
-    _n.load_library()
-    result_queue.put(("ready", None, None, None))
-    while True:
-        job = job_queue.get()
-        if job == _SENTINEL:
-            return
-        run_id, bam_paths, ref_path, options, chromosome, start, stop = job
-        region = (chromosome, start, stop)
-        try:
-            sites = host_sites_for_chunk(bam_paths, ref_path, chromosome,
-                                         start, stop, options)
-            result_queue.put(("ok", run_id, region, sites))
-        except Exception as exc:  # report and continue: recovery = rerun shard
-            result_queue.put(("error", run_id, region, repr(exc)))
-
-
-def _require_importable_main():
-    # spawn requires an importable __main__; scripts piped via stdin hang here
-    import __main__ as _main
-    main_file = getattr(_main, "__file__", None)
-    importable = bool(getattr(_main, "__spec__", None)) or (
-        main_file is not None and os.path.exists(main_file))
-    if not importable:
-        raise RuntimeError(
-            "HostWorkerPool uses multiprocessing 'spawn', which needs an "
-            "importable __main__ — run from a file or module, not stdin")
+@contextlib.contextmanager
+def _without_main():
+    """Start processes that do not run the parent's ``__main__`` again.
+    ``spawn`` re-imports the parent's main module in each child, to find
+    targets defined there; the calling CLI's (``python -m
+    hello_tpu_torch.pipeline.call``) imports torch.  The pool's target lives
+    in ``host_worker``, so while its workers start ``__main__`` is a bare
+    module and they import nothing of the parent's script (a script read
+    from stdin starts a pool too)."""
+    main = sys.modules["__main__"]
+    sys.modules["__main__"] = types.ModuleType("__main__")
+    try:
+        yield
+    finally:
+        sys.modules["__main__"] = main
 
 
 @contextlib.contextmanager
@@ -193,21 +83,22 @@ def _spawn_env():
 class HostWorkerPool:
     """Persistent pool of host-stage worker processes.
 
-    Worker startup (process spawn + torch and port imports) costs seconds
-    per worker; a production genome run pays it once and amortises it over
-    thousands of chunks.  Create the pool once, pass it to any number of
-    :func:`call_parallel` invocations, and ``shutdown()`` when done.
+    Worker startup (process spawn, the host modules and the native engine;
+    no torch) is paid per worker; a production genome run pays it once and amortises it over thousands of chunks.  Create the pool
+    once, pass it to any number of :func:`call_parallel` invocations, and
+    ``shutdown()`` when done.  ``ready`` holds each worker's ready message
+    (its pid and whether torch is imported in it).
 
     Single-consumer: one ``call_parallel`` drives the pool at a time.
     """
 
     def __init__(self, num_workers: int = 4):
-        _require_importable_main()
         ctx = mp.get_context("spawn")
         self.num_workers = num_workers
         self._job_queue = ctx.Queue()
         self._result_queue = ctx.Queue()
         self._ready = 0
+        self.ready: List[dict] = []
         # run token: results carry the submitting run's id so a consumer can
         # discard leftovers from an aborted previous call_parallel (reusing
         # the pool after an error must not mix runs' sites)
@@ -217,7 +108,7 @@ class HostWorkerPool:
                         args=(self._job_queue, self._result_queue),
                         daemon=True)
             for _ in range(num_workers)]
-        with _spawn_env():
+        with _spawn_env(), _without_main():
             for w in self._workers:
                 w.start()
 
@@ -250,6 +141,7 @@ class HostWorkerPool:
             msg = self._get(timeout)
             assert msg[0] == "ready", msg
             self._ready += 1
+            self.ready.append(msg[3])
 
     def new_run(self) -> int:
         """Start a new logical run: later ``results`` calls discard messages
@@ -271,6 +163,7 @@ class HostWorkerPool:
             msg = self._get(timeout)
             if msg[0] == "ready":          # late startup acks interleave
                 self._ready += 1
+                self.ready.append(msg[3])
                 continue
             status, run_id, region, payload = msg
             if run_id != self._run_id:     # aborted previous run's leftovers

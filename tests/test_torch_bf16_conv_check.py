@@ -67,3 +67,32 @@ def test_layers_against_cpu_of_a_copy_is_exact(bf16):
                and x.get("max_diff_over_layer_max", 0) == 0
                and x.get("fp32_max_rel", 0) == 0 for x in lines)
     assert {x["net"] for x in lines} >= {"read_conv0", "compressor0"}
+
+
+def test_hybrid_layers_against_cpu_visit_every_network(bf16, tmp_path):
+    """The two-platform batch through ``hybrid``: every network is held
+    (the read convolvers through the layer route, both calls of each
+    compressor, the tuple inputs of the xattns, combiners and meta-expert),
+    and a copy of the model differs nowhere."""
+    from hello_tpu_torch import sim
+
+    ds = sim.make_dataset(str(tmp_path), ref_length=20_000,
+                          num_variants=20, coverage=20, read_length=150,
+                          seed=7, platforms=("illumina", "pacbio"),
+                          pacbio_read_length=1500)
+    batch, sites = check.featurized_batch(ds, 3, hybrid=True)
+    assert sites == 3 and "reads1" in batch and "read_mask1" in batch
+    model = init_params(create_model("hybrid"),
+                        torch.Generator().manual_seed(2)).eval()
+    copy = create_model("hybrid")
+    copy.load_state_dict(model.state_dict())
+    lines = check.layers_against_cpu(model, copy.eval(), batch)
+    assert {x["net"] for x in lines} == set(model.networks())
+    calls = {(x["net"], x["call"]) for x in lines}
+    for k in range(2):
+        assert {(f"compressor{k}", 0), (f"compressor{k}", 1)} <= calls
+    assert ("read_conv1", 0) in calls and ("meta", 0) in calls
+    assert any("differ_share" in x for x in lines)
+    assert all(x.get("differ_share", 0) == 0
+               and x.get("max_diff_over_layer_max", 0) == 0
+               and x.get("fp32_max_rel", 0) == 0 for x in lines)

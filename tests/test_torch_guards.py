@@ -67,7 +67,9 @@ def test_port_imports_without_jax_or_hello_tpu():
             "hello_tpu_torch.pipeline.dump, hello_tpu_torch.pipeline.evaluate, "
             "hello_tpu_torch.parallel.mesh, hello_tpu_torch.entry, "
             "hello_tpu_torch.demo, hello_tpu_torch.nn.export, "
-            "hello_tpu_torch.pipeline.soak")
+            "hello_tpu_torch.pipeline.soak, hello_tpu_torch.ops.bench_packed, "
+            "hello_tpu_torch.ops.bench_read_conv, "
+            "hello_tpu_torch.pipeline.host_worker")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
