@@ -110,6 +110,25 @@ Phases, each printing one JSON line:
              route within 1e-5 of the sums' largest magnitude, with tf32's
              distance as the control; tf32 and bf16 by kernel_phase's
              bars);
+  bench_path  (after bench_read_conv_path) the port's throughput
+             benchmark, hello_tpu_torch.bench.run at its defaults (1024
+             sites x 2 alleles, 50 / 30 reads, 20 iterations; 512-site
+             training legs at default and bf16; the 32-site one-thread CPU
+             baseline; a 1.44 Mb genome through call_parallel with min(8,
+             cpus + 2) warmed workers; bf16 throughout), its line printed
+             as its main prints it and each leg's seconds: every rate
+             present and above 0, both PCIe probes; the bf16 route's
+             launches in the hybrid dense, hybrid wire and illumina wire
+             legs and the pipeline leg (> 0, no other route), none in the
+             training legs, whose losses are finite; each device leg's
+             batch-0 forward against the CPU's with the same weights at
+             bf16 (experts and meta within 2x of the CPU's own
+             bf16-against-highest distance at the worst allele; median and
+             winners reported); the kernel's sums of the hybrid wire leg's
+             batch 0 (both platforms) by kernel_phase's bf16 bar; the
+             pipeline leg's records on the first 300 kb against a CPU call
+             of that region at bf16: no site flips, genotype flips at most
+             0.2% of the records, the largest and median dQ reported;
   train_path  dump -> train -> call: a simulated 400 kb Illumina genome at
              30x with 1% substitution and 0.1% indel read errors, dumped with
              the port's dump_region into shards of 80 sites; the first three
@@ -1311,7 +1330,8 @@ def _forward_distance(got, ref, real, sites):
     have = _winners(got[0], real, sites)
     return {"experts_max": float(d.max()),
             "experts_median": float(np.median(d)),
-            "meta_max": float(np.abs(got[1] - ref[1]).max()),
+            "meta_max": (float(np.abs(got[1] - ref[1]).max())
+                         if ref[1] is not None else None),
             "winner_flips": sum(have[k] != v for k, v in want.items()),
             "pairs": len(want)}
 
@@ -1516,6 +1536,182 @@ def bench_read_conv_path_phase():
               "bar": BENCH_TF32X3_OF_LARGEST},
           "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+# bench_path: hello_tpu_torch.bench.run at its defaults; the pipeline leg's
+# records of this many first base pairs are held to a CPU call
+BENCH_ARGV = []
+BENCH_CPU_REGION_BP = 300_000
+
+
+def _bench_forwards_against_cpu(outputs):
+    """Each device leg's batch-0 forward on the card (from its warm call)
+    against the CPU's forward of the same weights on the same batch at
+    bf16, by _forward_against_plain's worst-allele bar: the experts and the
+    meta weights within 2x of the CPU's own bf16-against-highest distance;
+    the median distance and the winners moved are reported.  The two hybrid
+    legs hold the same sites in the same allele slots (dense grid and coded
+    wire, asserted), so both are held to the CPU's forwards of the wire's
+    batch 0.  Returns the readings."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn.layers import PRECISION, set_precision
+    from hello_tpu_torch.ops import bench_packed as bp
+
+    host = lambda b: {k: v.cpu() for k, v in b.items()}
+    numpy = lambda out: tuple(t if t is None else t.numpy() for t in out)
+    saved, found = PRECISION, {}
+    for model_leg, legs in (("device_wire", ("device_wire", "device_dense")),
+                            ("device_illumina", ("device_illumina",))):
+        wire = host(outputs[model_leg]["batches"][0])
+        real = wire["allele_mask"].numpy() > 0
+        sites = wire["site_ids"].numpy()
+        cpu_model = copy.deepcopy(outputs[model_leg]["model"]).cpu()
+        cpu = {}
+        for precision in ("bf16", "highest"):
+            set_precision(precision)
+            cpu[precision] = numpy(bp.forward(
+                cpu_model, cpu_model.fold_read_convs(), "packed", wire))
+        own = _forward_distance(cpu["bf16"], cpu["highest"], real, sites)
+        for name in legs:
+            batch = outputs[name]["batches"][0]
+            for k in ("allele_mask", "site_ids"):
+                if not torch.equal(batch[k].cpu(), wire[k]):
+                    raise AssertionError(f"bench_path: {name}'s {k} differ "
+                                         f"from {model_leg}'s")
+            got = numpy(outputs[name]["output"])
+            line = _forward_distance(got, cpu["bf16"], real, sites)
+            bad = not np.isfinite(got[0]).all() or \
+                line["experts_max"] > 2 * own["experts_max"] or (
+                    line["meta_max"] is not None
+                    and line["meta_max"] > 2 * own["meta_max"])
+            if bad:
+                raise AssertionError(f"bench_path: {name}'s forward against "
+                                     f"the CPU at bf16 {line}, the CPU's "
+                                     f"bf16 against highest {own}")
+            found[name] = {"vs_cpu_bf16": line,
+                           "cpu_bf16_vs_highest": own}
+        del cpu_model
+    set_precision(saved)
+    return found
+
+
+def bench_path_phase(workdir):
+    """hello_tpu_torch.bench.run on the card at its defaults (1024 sites x 2
+    alleles with 50 / 30 reads and 20 iterations, 512-site training legs at
+    default and bf16, the 32-site one-thread CPU baseline, the 1.44 Mb
+    genome through call_parallel with min(8, cpus + 2) warmed workers, bf16
+    throughout), its line printed as its main prints it, each leg's
+    seconds beside it.  Every rate is there and above 0, and both PCIe
+    probes; the bf16 route launches in each device leg and the pipeline
+    leg, no other route does, and the training legs launch nothing.  Held:
+    each device leg's forward against the CPU (_bench_forwards_against_cpu);
+    the kernel's sums of the hybrid wire leg's batch 0, both platforms,
+    against its plain version (_against_plain); the pipeline leg's records
+    on the first BENCH_CPU_REGION_BP against a CPU call of that region with
+    the same weights at bf16: no site flips, genotype flips at most 0.2% of
+    the records (the largest and median dQ reported); the training losses
+    finite.  Returns (launches of the bf16 route on the path, the launches
+    of the sums' check)."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch import bench
+    from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.compact import expand_compact_packed
+    from hello_tpu_torch.pipeline.precision_sweep import compare
+
+    t_phase = time.perf_counter()
+    result = bench.run(BENCH_ARGV, workdir=workdir)
+    line, legs, outputs = result["line"], result["legs"], result["outputs"]
+    print(json.dumps(line), flush=True)
+    rates = [k for k in line if k.endswith("_windows_per_s")] + [
+        "value", "vs_baseline", "end_to_end_pct_of_device"]
+    missing = [k for k in rates if not (line[k] is not None and line[k] > 0)]
+    if missing or not (line["tunnel_before"] and line["tunnel_after"]):
+        raise AssertionError(f"bench_path: rates {missing} missing or not "
+                             f"above 0 in {line}")
+    route = rc.route_for_precision("bf16")
+    launches = {}
+    for name in ("device_dense", "device_wire", "device_illumina",
+                 "pipeline"):
+        by_route = legs[name]["launches_by_route"]
+        if by_route[route] <= 0 or sum(by_route.values()) != by_route[route]:
+            raise AssertionError(f"bench_path, {name}: launches {by_route}, "
+                                 f"only route {route} may run")
+        launches[name] = by_route[route]
+    for name in ("train_default", "train_bf16"):
+        if sum(legs[name]["launches_by_route"].values()):
+            raise AssertionError(f"bench_path, {name} launched the kernel: "
+                                 f"{legs[name]['launches_by_route']}")
+        if not all(np.isfinite(v) for v in outputs[name].values()):
+            raise AssertionError(f"bench_path, {name}: losses "
+                                 f"{outputs[name]}")
+
+    t0 = time.perf_counter()
+    forwards = _bench_forwards_against_cpu(outputs)
+    forwards_s = time.perf_counter() - t0
+
+    rc.reset_launches()
+    leg, sums = outputs["device_wire"], {}
+    with torch.inference_mode():
+        x = expand_compact_packed(leg["batches"][0])
+        for k in (0, 1):
+            rows = (x[f"rows{k}"], x[f"row_allele{k}"],
+                    x[f"row_valid{k}"].float(), x[f"read_mask{k}"].shape[0])
+            try:
+                sums[f"platform{k}"] = _against_plain(
+                    rc.read_conv_reduce(*rows[:3],
+                                        leg["folded"][f"read_conv{k}"],
+                                        rows[3]),
+                    rows, leg["model"].net(f"read_conv{k}"), route)
+            except AssertionError as e:
+                raise AssertionError(f"bench_path, the hybrid wire leg, "
+                                     f"platform {k}: {e}") from None
+    checks = rc.read_conv_reduce.launches_by_route[route]
+    del x, rows
+
+    pipeline = outputs["pipeline"]
+    ds = pipeline["dataset"]
+    card = [r for r in pipeline["records"]
+            if r.position < BENCH_CPU_REGION_BP]
+    set_precision("bf16")
+    cpu, cpu_s = call_on_cpu(
+        "illumina", pipeline["scorer"], [ds.bams["illumina"]], ds.fasta,
+        os.path.join(workdir, "cpu_bf16.vcf"),
+        regions=[(ds.chromosome, 0, BENCH_CPU_REGION_BP)])
+    set_precision("highest")
+    site_flips, gt_flips, dq = compare(card, cpu)
+    gt_bar = 0.002 * len(card)
+    records = {"region_bp": BENCH_CPU_REGION_BP, "card_records": len(card),
+               "cpu_records": len(cpu), "cpu_seconds": cpu_s,
+               "site_flips": site_flips, "genotype_flips": gt_flips,
+               "qual_delta_max": float(dq.max()) if len(dq) else None,
+               "qual_delta_median": float(np.median(dq)) if len(dq) else None}
+    if not card or site_flips or gt_flips > gt_bar:
+        raise AssertionError(f"bench_path: the pipeline leg's records "
+                             f"against the CPU at bf16: {records} (genotype "
+                             f"flips at most {gt_bar})")
+    emit({"phase": "bench_path", "line": line,
+          "leg_seconds": {k: v["seconds"] for k, v in legs.items()},
+          "launches_by_leg": {k: v["launches_by_route"]
+                              for k, v in legs.items()},
+          "train_breakdowns": result["breakdowns"],
+          "train_losses": {k: outputs[k] for k in ("train_default",
+                                                   "train_bf16")},
+          "pipeline_stats": {k: v for k, v in pipeline["stats"].items()
+                             if isinstance(v, (int, float))},
+          "forwards_against_cpu": forwards,
+          "forwards_check_seconds": forwards_s,
+          "sums_against_plain": sums, "pipeline_against_cpu": records,
+          "seconds": time.perf_counter() - t_phase})
+    del result, outputs, leg, pipeline
+    torch.cuda.empty_cache()
+    return launches, checks
 
 
 def _swap_check(trained, sites):
@@ -2855,6 +3051,8 @@ def main():
             os.path.join(workdir, "parallel"))
         bench_packed, bench_packed_checks = bench_packed_path_phase()
         bench_read_conv = bench_read_conv_path_phase()
+        bench_launches, bench_checks = bench_path_phase(
+            os.path.join(workdir, "bench"))
         configs_path_phase(os.path.join(workdir, "configs"), ds, hybrid_ds,
                            parallel_ds, lines[0])
         trained, validation, shards = train_path_phase(
@@ -2882,7 +3080,8 @@ def main():
         "bf16": {"parallel_path": parallel["bf16"], "soak_path": soak,
                  "bench_packed_path": bench_packed["bf16"],
                  "bench_read_conv_path": sum(
-                     v["bf16"] for v in bench_read_conv.values())},
+                     v["bf16"] for v in bench_read_conv.values()),
+                 "bench_path": bench_launches},
     }
     kernels = []
     for route in ROUTES:
@@ -2902,7 +3101,9 @@ def main():
             # launches that hold the kernel to its plain version, apart
             # from the paths' runs
             "check_launches": {"bench_packed_path_vs_plain":
-                                   bench_packed_checks.get(route, 0)},
+                                   bench_packed_checks.get(route, 0),
+                               "bench_path_vs_plain":
+                                   bench_checks if route == "bf16" else 0},
             "max_abs_err": max(k6["max_abs_err"], k7["max_abs_err"]),
             "ms": k6["ms"], "plain_ms": k6["plain_ms"],
             "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
