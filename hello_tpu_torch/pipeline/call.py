@@ -17,7 +17,8 @@ Everything runs on the cards unless the caller passes ``device="cpu"``
 (``--device cpu``): the Scorer round-robins batches over every visible card
 (``--device cuda:N`` pins one), and without a card the default raises
 instead of carrying on on the CPU.  ``--profile_dir`` traces the run
-(telemetry.device_trace).
+(telemetry.device_trace), the Scorer's spans (``scorer.dispatch`` and its
+``scorer.upload`` and ``scorer.launch``) on a track of their own.
 """
 
 from __future__ import annotations
@@ -86,11 +87,14 @@ def _on(device: torch.device):
 class Dispatched:
     """A dispatched batch: its results in host memory (filled by
     device-to-host copies still in flight until ``event`` completes), and
-    the position in ``Scorer.devices`` it ran on."""
+    the position in ``Scorer.devices`` it ran on.  On the card, ``wait``
+    holds what ``finalize_many`` records as ``scorer.card_wait``
+    (``telemetry.record_card_wait``) until it has recorded it."""
     out: Dict[str, Optional[torch.Tensor]]
     event: Optional[torch.cuda.Event] = None
     position: int = 0
     outstanding: bool = True
+    wait: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -182,6 +186,10 @@ class Scorer:
         self._account_lock = threading.Lock()
         self.dispatch_counts: Dict[int, int] = {}
         self._outstanding: Dict[int, int] = {}
+        # each position's newest end event (the card's idle before a batch),
+        # and its first events that are free again
+        self._last_end: Dict[int, torch.cuda.Event] = {}
+        self._free_events: Dict[int, list] = {}
         self.peak_concurrent_devices = 0
         self._refresh(0)
 
@@ -282,34 +290,53 @@ class Scorer:
 
         ``decode=True`` (honoured only when ``device_decode`` is on) runs the
         genotype decode on the device and returns the per-site winners
-        instead of the logit tensors."""
-        decode = decode and self.device_decode
-        if hasattr(batch, "wire"):        # WireBatch: pre-coded by the host
-            d = batch.wire
-        elif self.compact:
-            from .compact import compact_batch
-            d = compact_batch(batch)
-        else:
-            d = batch.device_dict()
-        pos = self._next % len(self.devices)
+        instead of the logit tensors.
+
+        Spans (``telemetry.stage``, keyed by the batch's number):
+        ``scorer.dispatch`` over the call, ``scorer.upload`` over the
+        uploads, ``scorer.launch`` over the expansion, the forward and the
+        decode, all enqueued.  On the card two timed events bracket the
+        batch's work, from which ``finalize_many`` records the card's idle
+        before it (``scorer.card_wait``)."""
+        seq = self._next
         self._next += 1
-        device = self.devices[pos]
-        rep = self._refresh(pos)
-        with torch.inference_mode(), _on(device):
-            out = self._forward(rep, self._upload(d, device), decode)
-            if device.type != "cuda":
-                return self._account(Dispatched(out, position=pos))
-            host = {}
-            for k, t in out.items():
-                if t is None:
-                    host[k] = None
-                    continue
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                host[k] = h
-            event = torch.cuda.Event()
-            event.record()
-        return self._account(Dispatched(host, event, pos))
+        with telemetry.stage("scorer.dispatch", key=seq) as t0:
+            decode = decode and self.device_decode
+            if hasattr(batch, "wire"):    # WireBatch: pre-coded by the host
+                d = batch.wire
+            elif self.compact:
+                from .compact import compact_batch
+                d = compact_batch(batch)
+            else:
+                d = batch.device_dict()
+            pos = seq % len(self.devices)
+            device = self.devices[pos]
+            rep = self._refresh(pos)
+            on_card = device.type == "cuda"
+            with torch.inference_mode(), _on(device):
+                if on_card:
+                    free = self._free_events.setdefault(pos, [])
+                    started = telemetry.timed_event(free)
+                    started.record()
+                with telemetry.stage("scorer.upload", key=seq):
+                    d = self._upload(d, device)
+                with telemetry.stage("scorer.launch", key=seq):
+                    out = self._forward(rep, d, decode)
+                if not on_card:
+                    return self._account(Dispatched(out, position=pos))
+                host = {}
+                for k, t in out.items():
+                    if t is None:
+                        host[k] = None
+                        continue
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    host[k] = h
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+            wait = (self._last_end.get(pos), started, t0, seq, free)
+            self._last_end[pos] = event
+            return self._account(Dispatched(host, event, pos, wait=wait))
 
     def _account(self, result: Dispatched) -> Dispatched:
         """Count a dispatch and the positions holding work."""
@@ -351,6 +378,11 @@ class Scorer:
                 if r.outstanding:
                     r.outstanding = False
                     self._outstanding[r.position] -= 1
+                # its first event is complete once its end event is
+                if r.wait is not None and (r.event is newest[r.position]
+                                           or r.event.query()):
+                    telemetry.record_card_wait("scorer.card_wait", r.wait)
+                r.wait = None
         return [self._host_form(r.out) for r in results]
 
     def __call__(self, batch: PaddedBatch):
@@ -733,7 +765,9 @@ def main(argv=None):
                              "meta-expert's choices and per-site features "
                              "(in-process calling only)")
     parser.add_argument("--profile_dir", default=None,
-                        help="write a torch.profiler trace of the run here")
+                        help="write a torch.profiler trace of the run "
+                             "here, with the program's spans (scorer.*) on "
+                             "a track of their own")
     parser.add_argument("--log", default=None)
     args = parser.parse_args(argv)
 

@@ -1,11 +1,17 @@
-"""Stage timing, device traces and the host-device link probe.
+"""Stage timing, span records, device traces and the host-device link probe.
 
 The port of hello_tpu's telemetry.py: one registry of accumulated wall time
-per pipeline stage; ``device_trace``, a torch.profiler trace of a block
-(host activity and the card's kernels) written as Chrome / Perfetto JSON,
-which ``trace_summary`` reads back as the card's busy share and its
-kernels by time; and ``tunnel_health``, the host-device link's rates and
-round trip (PCIe on the card).
+per pipeline stage; beside it, a bounded ring of span records (each
+``stage`` call's name, start and end on the system clock, the enclosing
+stage, a batch or step key and the thread; and numbers measured elsewhere,
+such as the card's wait for the host, added by ``record``), read by
+``spans`` and ``mean_ms`` over a window of that clock; ``device_trace``, a
+torch.profiler trace of a block (host activity and the card's kernels)
+written as Chrome / Perfetto JSON with the block's span records on a track
+of their own (``hello_tpu_torch spans``) on the trace's clock, which
+``trace_summary`` reads back as the card's busy share and its kernels by
+time; and ``tunnel_health``, the host-device link's rates and round trip
+(PCIe on the card).
 """
 
 from __future__ import annotations
@@ -18,8 +24,8 @@ import socket
 import statistics
 import threading
 import time
-from collections import defaultdict
-from typing import Any, Dict, Optional
+from collections import defaultdict, deque
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -29,18 +35,116 @@ _lock = threading.Lock()
 _totals: Dict[str, float] = defaultdict(float)
 _counts: Dict[str, int] = defaultdict(int)
 
+#: span records the ring holds; the oldest go first
+RING_LEN = 65_536
+#: the system clock (the profiler trace's ``baseTimeNanoseconds + ts``) less
+#: ``perf_counter_ns``, taken once: records are stamped on the monotonic clock
+_EPOCH_NS = time.time_ns() - time.perf_counter_ns()
 
-@contextlib.contextmanager
-def stage(name: str):
-    """Accumulate wall time for a named pipeline stage."""
-    start = time.perf_counter()
+
+class Span(NamedTuple):
+    """One span record: ns on the system clock, the enclosing stage's name
+    on the same thread (None at the top; ``record``'s caller's), the caller's
+    key (a batch's or step's number) and the thread's native id."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    key: Any
+    thread: int
+
+
+# the records as plain tuples in Span's order (``spans`` names them)
+_ring: deque = deque(maxlen=RING_LEN)
+# the latest start of a record the ring has dropped
+_dropped_ns = -1
+# per thread: the names of the open stages, and the thread's native id
+_local = threading.local()
+
+
+def now_ns() -> int:
+    """The span records' clock: the system clock, in ns."""
+    return time.perf_counter_ns() + _EPOCH_NS
+
+
+def _thread():
+    """This thread's open stages and its native id."""
     try:
-        yield
-    finally:
-        elapsed = time.perf_counter() - start
+        return _local.stack, _local.tid
+    except AttributeError:
+        _local.stack, _local.tid = [], threading.get_native_id()
+        return _local.stack, _local.tid
+
+
+def _append(record: tuple):
+    """Append under ``_lock`` (held by the caller)."""
+    global _dropped_ns
+    if len(_ring) == RING_LEN:
+        _dropped_ns = max(_dropped_ns, _ring[0][1])
+    _ring.append(record)
+
+
+class stage:
+    """``with stage(name, key=None) as start:`` accumulates wall time for a
+    named pipeline stage and adds a span record of the block to the ring;
+    ``start`` is the block's start (``now_ns``).  A class, not a generator
+    context manager: it runs on every batch and step, where a generator's
+    set-up costs more than the record."""
+
+    __slots__ = ("name", "key", "parent", "start")
+
+    def __init__(self, name: str, key=None):
+        self.name = name
+        self.key = key
+
+    def __enter__(self) -> int:
+        stack, _ = _thread()
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.start = time.perf_counter_ns()
+        return self.start + _EPOCH_NS
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        stack, tid = _thread()
+        stack.pop()
         with _lock:
-            _totals[name] += elapsed
-            _counts[name] += 1
+            _totals[self.name] += (end - self.start) / 1e9
+            _counts[self.name] += 1
+            _append((self.name, self.start + _EPOCH_NS, end + _EPOCH_NS,
+                     self.parent, self.key, tid))
+
+
+def record(name: str, start_ns: int, dur_ns: int, key=None,
+           parent: Optional[str] = None):
+    """Add a span record measured elsewhere (such as between two CUDA
+    events): ``start_ns`` on the ``now_ns`` clock, ``parent`` the span it
+    lies in, if any."""
+    tid = _thread()[1]
+    with _lock:
+        _append((name, start_ns, start_ns + dur_ns, parent, key, tid))
+
+
+def timed_event(free: list) -> torch.cuda.Event:
+    """A timed CUDA event from ``free`` (first events whose work has been
+    waited for), else a new one: creating an event costs more host time
+    than recording one."""
+    try:
+        return free.pop()
+    except IndexError:
+        return torch.cuda.Event(enable_timing=True)
+
+
+def record_card_wait(name: str, wait: tuple):
+    """Record, under ``name``, how long the card's stream sat idle between
+    the end event of the work before and the first event of this work
+    (both complete), stamped with the host's start of this work; then put
+    the first event back in its free list.  ``wait`` is (that end event or
+    None, the first event, the start in ns, key, the free list)."""
+    before, started, t0, key, free = wait
+    if before is not None:
+        record(name, t0, int(before.elapsed_time(started) * 1e6), key)
+    free.append(started)
 
 
 def add(name: str, seconds: float, calls: int = 1):
@@ -59,6 +163,7 @@ def report() -> Dict[str, dict]:
 
 
 def reset():
+    """Clear the stage totals (the span ring keeps its records)."""
     with _lock:
         _totals.clear()
         _counts.clear()
@@ -70,13 +175,47 @@ def log_report(level=logging.INFO):
                    name, info["seconds"], info["calls"])
 
 
+def spans(since_ns: int, until_ns: int) -> List[Span]:
+    """The ring's records that start in [since_ns, until_ns]."""
+    with _lock:
+        return [Span(*r) for r in _ring if since_ns <= r[1] <= until_ns]
+
+
+def mean_ms(name: str, since_ns: int, until_ns: int,
+            exclusive: bool = False) -> Optional[float]:
+    """Mean ms of the records named ``name`` that start in [since_ns,
+    until_ns]; ``exclusive``: each less its child stages (same key and
+    thread, inside it).  None when there are none, or when the ring has
+    dropped records from the window."""
+    with _lock:
+        if _dropped_ns >= since_ns:
+            return None
+        ring = [Span(*r) for r in _ring]
+    mine = [s for s in ring
+            if s.name == name and since_ns <= s.start_ns <= until_ns]
+    if not mine:
+        return None
+    total = sum(s.end_ns - s.start_ns for s in mine)
+    if exclusive:
+        children = defaultdict(list)
+        for s in ring:
+            if s.parent == name:
+                children[s.key, s.thread].append(s)
+        for p in mine:
+            total -= sum(c.end_ns - c.start_ns
+                         for c in children.get((p.key, p.thread), ())
+                         if p.start_ns <= c.start_ns <= p.end_ns)
+    return total / len(mine) / 1e6
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str, cuda: Optional[bool] = None):
     """Trace the block with torch.profiler: host activity, plus the card's
     kernels and copies when ``cuda`` (default: when a card is visible).
     Yields the trace file's path, ``<log_dir>/trace.<host>.<pid>.json``,
     written when the block ends (Chrome / Perfetto JSON; open it in
-    ui.perfetto.dev)."""
+    ui.perfetto.dev), with the span records that started in the block on a
+    track of their own, ``hello_tpu_torch spans``."""
     from torch.profiler import ProfilerActivity, profile
 
     if cuda is None:
@@ -87,12 +226,39 @@ def device_trace(log_dir: str, cuda: Optional[bool] = None):
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir,
                         f"trace.{socket.gethostname()}.{os.getpid()}.json")
+    since = now_ns()
     with profile(activities=activities) as prof:
         yield path
         if cuda:
             torch.cuda.synchronize()     # the block's kernels end inside
     prof.export_chrome_trace(path)
+    _add_spans(path, spans(since, now_ns()))
     logger.info("profiler trace written to %s", path)
+
+
+def _add_spans(path: str, records: List[Span]):
+    """Write span records into a Chrome trace as complete events of a
+    process of their own, one thread per recording thread, on the trace's
+    clock (``baseTimeNanoseconds`` + ts in us)."""
+    with open(path) as fh:
+        data = json.load(fh)
+    events = data.setdefault("traceEvents", [])
+    base = data.get("baseTimeNanoseconds", 0)
+    pid = 1 + max((e["pid"] for e in events
+                   if isinstance(e.get("pid"), int)), default=0)
+    events.append({"ph": "M", "name": "process_name", "pid": pid,
+                   "args": {"name": "hello_tpu_torch spans"}})
+    for tid in sorted({r.thread for r in records}):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": tid, "args": {"name": f"thread {tid}"}})
+    for r in records:
+        events.append({"ph": "X", "cat": "hello_tpu_torch", "name": r.name,
+                       "pid": pid, "tid": r.thread,
+                       "ts": (r.start_ns - base) / 1e3,
+                       "dur": (r.end_ns - r.start_ns) / 1e3,
+                       "args": {"key": r.key, "parent": r.parent}})
+    with open(path, "w") as fh:
+        json.dump(data, fh, default=str)
 
 
 def trace_summary(path: str) -> Dict[str, Any]:

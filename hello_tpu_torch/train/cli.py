@@ -14,7 +14,8 @@ batches, and rank 0 alone writes checkpoints and metrics.  On the card the
 defaults ship coded-wire batches (expanded on the device) and overlap: a
 prefetch thread packs the next batch and uploads it through pinned buffers
 while the step in flight runs, and each step's loss is read one step late.
-``--profile_dir`` traces the run (telemetry.device_trace).  Outputs:
+``--profile_dir`` traces the run (telemetry.device_trace), the trainer's
+spans (``trainer.step`` and its children) on a track of their own.  Outputs:
 ``<out_prefix>.metrics.jsonl``, ``.epoch<n>.ckpt``, ``.best.ckpt`` (with a
 validation split) and ``.final.ckpt``, in hello_tpu's checkpoint format.
 """
@@ -382,7 +383,9 @@ def main(argv=None):
                              "LOCAL_RANK): NCCL on cuda:LOCAL_RANK, gloo "
                              "with --device cpu")
     parser.add_argument("--profile_dir", default=None,
-                        help="write a torch.profiler trace of the run here")
+                        help="write a torch.profiler trace of the run "
+                             "here, with the program's spans (trainer.*) on "
+                             "a track of their own")
     parser.add_argument("--wire", choices=["auto", "0", "1"], default="auto",
                         help="coded-wire training batches (1-byte cells "
                              "expanded on the device): auto = on for the "

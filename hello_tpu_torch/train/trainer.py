@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
+from .. import telemetry
 from ..nn import layers as L
 from ..nn.convert import init_params, jax_params_from_state_dict, state_dict_from_jax
 from ..nn.moe import MoEAttention
@@ -253,6 +254,10 @@ class Trainer:
         self._reg = entropy_decay(config.entropy_regularizer,
                                   config.entropy_decay)
         self._stage_stream = None
+        # the newest sync=False step's end event (the card's idle before
+        # the next step), and first events that are free again
+        self._last_end = None
+        self._free_events = []
 
     # -- batches ------------------------------------------------------------
 
@@ -307,14 +312,18 @@ class Trainer:
         """(loss, per-expert loss, gradients, the batch-norm statistics the
         forward left) of one sub-batch; the statistics are read before the
         backward, which recomputes the forward under ``remat``."""
-        if self.config.remat:
-            total, per_expert = torch.utils.checkpoint.checkpoint(
-                _batch_loss, self.model, self.config, batch, reg,
-                use_reentrant=False)
-        else:
-            total, per_expert = _batch_loss(self.model, self.config, batch, reg)
+        with telemetry.stage("trainer.forward", key=self.step):
+            if self.config.remat:
+                total, per_expert = torch.utils.checkpoint.checkpoint(
+                    _batch_loss, self.model, self.config, batch, reg,
+                    use_reentrant=False)
+            else:
+                total, per_expert = _batch_loss(self.model, self.config,
+                                                batch, reg)
         stats = [b.clone() for b in self.stats]
-        grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        with telemetry.stage("trainer.backward", key=self.step):
+            grads = torch.autograd.grad(total, self.params,
+                                        allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
         return total.detach(), per_expert.detach(), grads, stats
@@ -346,8 +355,9 @@ class Trainer:
                 stats = [a + b for a, b in zip(stats, st)]
         self._set_stats(old)
         if mesh.is_distributed():
-            summed = self._all_reduce([total.reshape(1), per_expert] + grads
-                                      + stats)
+            with telemetry.stage("trainer.allreduce", key=self.step):
+                summed = self._all_reduce([total.reshape(1), per_expert]
+                                          + grads + stats)
             total, per_expert = summed[0][0], summed[1]
             grads = summed[2:2 + len(grads)]
             stats = summed[2 + len(grads):]
@@ -423,7 +433,25 @@ class Trainer:
         ``sync=False`` waits for nothing: it returns the loss on the device,
         and on the card pinned host copies of it with the event that marks
         them written (read them with ``read_metrics``); the caller owns the
-        finite check."""
+        finite check.
+
+        Spans (``telemetry.stage``, keyed by the step): ``trainer.step``
+        over the call, ``trainer.forward``, ``trainer.backward``,
+        ``trainer.update`` and, in a process group, ``trainer.allreduce``.
+        With ``sync=False`` on the card a timed event marks the step's
+        start, from which ``read_metrics`` records the card's idle before
+        the step (``trainer.card_wait``)."""
+        key = self.step
+        with telemetry.stage("trainer.step", key=key) as t0:
+            return self._train_batch(device_batches, crash_dump_prefix, sync,
+                                     key, t0)
+
+    def _train_batch(self, device_batches, crash_dump_prefix, sync, key, t0):
+        before, self._last_end = self._last_end, None
+        started = None
+        if not sync and self.device.type == "cuda":
+            started = telemetry.timed_event(self._free_events)
+            started.record(torch.cuda.current_stream(self.device))
         total, per_expert, grads, stats = self._loss_and_grads(
             device_batches, self._reg(self.step))
         if sync:
@@ -437,19 +465,23 @@ class Trainer:
                 raise FloatingPointError(
                     f"non-finite training loss at step {self.step}; params "
                     f"and payload dumped to {prefix}.step{self.step}.*")
-        self.opt.update(grads)
+        with telemetry.stage("trainer.update", key=key):
+            self.opt.update(grads)
         self._set_stats(stats)
         self.step += 1
         if sync:
             return {"loss": loss, "per_expert": per_expert.cpu().tolist()}
         out = {"loss_device": total, "per_expert_device": per_expert}
-        if total.device.type == "cuda":
+        if started is not None:
             host = torch.empty(1 + per_expert.numel(), pin_memory=True)
             host.copy_(torch.cat([total.reshape(1), per_expert]),
                        non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            out.update(host=host, event=event)
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(self.device))
+            out.update(host=host, event=event,
+                       card_wait=(before, started, t0, key,
+                                  self._free_events))
+            self._last_end = event
         return out
 
     @staticmethod
@@ -458,6 +490,9 @@ class Trainer:
         waiting only for that step."""
         if "event" in m:
             m["event"].synchronize()
+            wait = m.pop("card_wait", None)
+            if wait is not None:
+                telemetry.record_card_wait("trainer.card_wait", wait)
             vals = m["host"].tolist()
             return vals[0], vals[1:]
         return float(m["loss_device"]), m["per_expert_device"].cpu().tolist()

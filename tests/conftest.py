@@ -31,6 +31,11 @@ import pytest  # noqa: E402
 REFERENCE_DIR = "/root/reference"
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: needs an NVIDIA GPU; skips without one")
+
+
 def has_reference():
     return os.path.isdir(os.path.join(REFERENCE_DIR, "python"))
 

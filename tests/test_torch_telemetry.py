@@ -10,13 +10,22 @@ the probe measures host memory copies:
   * ``--profile_dir`` on the calling CLI (a simulated 8 kb genome) and on
     the training CLI (a few dumped sites) writes a trace beside their
     outputs;
-  * ``tunnel_health`` returns hello_tpu's four keys.
+  * ``tunnel_health`` returns hello_tpu's four keys;
+  * the span ring: a ``stage`` record lies on the trace's clock
+    (``baseTimeNanoseconds + ts``) to within 1 ms, nested stages record
+    their parent and key, the ring keeps its fixed length and ``mean_ms``
+    reads nothing once records of its window were dropped, ``mean_ms``
+    counts only its window (and a span less its children with
+    ``exclusive``), and ``device_trace`` writes the block's spans on a
+    track of their own.
 """
 
 import glob
 import json
 import os
 import sys
+import time
+from collections import deque
 
 import numpy as np
 import pytest
@@ -97,3 +106,115 @@ def test_tunnel_health_needs_a_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         telemetry.tunnel_health()
+
+
+def _trace_events(path):
+    with open(path) as fh:
+        data = json.load(fh)
+    return data.get("baseTimeNanoseconds", 0), data["traceEvents"]
+
+
+def test_stage_records_lie_on_the_trace_clock(tmp_path):
+    with torch.profiler.record_function("warm"):   # the first call's cost
+        pass
+    with telemetry.device_trace(str(tmp_path), cuda=False) as path:
+        with telemetry.stage("test.align") as t0:
+            with torch.profiler.record_function("test.align.inner"):
+                time.sleep(0.02)
+    rec = [s for s in telemetry.spans(t0, t0) if s.name == "test.align"]
+    assert len(rec) == 1 and rec[0].start_ns == t0
+    base, events = _trace_events(path)
+    inner = [e for e in events if e.get("name") == "test.align.inner"]
+    assert len(inner) == 1
+    lo = base + inner[0]["ts"] * 1e3
+    hi = lo + inner[0]["dur"] * 1e3
+    # the profiler's range opens inside the stage and closes inside it
+    assert rec[0].start_ns - 1e6 <= lo and hi <= rec[0].end_ns + 1e6
+    assert abs(lo - rec[0].start_ns) < 1e6
+
+
+def test_nested_stages_record_parent_and_key():
+    since = telemetry.now_ns()
+    with telemetry.stage("test.outer", key=7):
+        with telemetry.stage("test.inner", key=7):
+            pass
+        with telemetry.stage("test.inner", key=8):
+            with telemetry.stage("test.innermost"):
+                pass
+    got = {(s.name, s.key): s for s in telemetry.spans(since,
+                                                       telemetry.now_ns())}
+    assert got["test.outer", 7].parent is None
+    assert got["test.inner", 7].parent == "test.outer"
+    assert got["test.inner", 8].parent == "test.outer"
+    assert got["test.innermost", None].parent == "test.inner"
+    outer = got["test.outer", 7]
+    for s in got.values():
+        assert outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
+        assert s.thread == outer.thread
+    assert telemetry.report()["test.inner"]["calls"] >= 2
+
+
+def test_ring_keeps_its_length_and_mean_ms_refuses_a_dropped_window(
+        monkeypatch):
+    monkeypatch.setattr(telemetry, "_ring", deque(maxlen=telemetry.RING_LEN))
+    monkeypatch.setattr(telemetry, "_dropped_ns", -1)
+    assert telemetry.RING_LEN == 65_536
+    t = 10**18
+    for i in range(telemetry.RING_LEN):
+        telemetry.record("test.ring", t + 1000 * i, 500)
+    assert telemetry.mean_ms("test.ring", t, t + 10**12) == 5e-4
+    for i in range(3):
+        telemetry.record("test.ring", t + 10**9 + i, 2000)
+    assert len(telemetry._ring) == telemetry.RING_LEN
+    # the three oldest records of the window are gone: no number
+    assert telemetry.mean_ms("test.ring", t, t + 10**12) is None
+    # a window that starts after every dropped record still reads
+    assert telemetry.mean_ms("test.ring", t + 10**9, t + 10**12) == 2e-3
+    assert telemetry.mean_ms("test.ring", t + 3000, t + 10**12) is not None
+
+
+def test_mean_ms_counts_only_its_window():
+    t = telemetry.now_ns() + 10**12          # after every real record
+    telemetry.record("test.window", t - 10, 9_000_000)          # before
+    telemetry.record("test.window", t, 1_000_000, key=1)
+    telemetry.record("test.window", t + 500, 3_000_000, key=2)
+    telemetry.record("test.window", t + 10**6 + 1, 50_000_000)   # after
+    assert telemetry.mean_ms("test.window", t, t + 10**6) == 2.0
+    assert telemetry.mean_ms("test.missing", t, t + 10**6) is None
+    # exclusive: a span less its children of the same key and thread
+    since = telemetry.now_ns()
+    with telemetry.stage("test.parent", key=3):
+        with telemetry.stage("test.child", key=3):
+            time.sleep(0.01)
+        time.sleep(0.005)
+    until = telemetry.now_ns()
+    whole = telemetry.mean_ms("test.parent", since, until)
+    child = telemetry.mean_ms("test.child", since, until)
+    own = telemetry.mean_ms("test.parent", since, until, exclusive=True)
+    assert child >= 10 and own >= 5
+    assert abs(whole - child - own) < 1e-9
+
+
+def test_device_trace_writes_the_spans_on_their_own_track(tmp_path):
+    with telemetry.device_trace(str(tmp_path), cuda=False) as path:
+        with telemetry.stage("test.track", key=5):
+            with telemetry.stage("test.track.child", key=5):
+                x = torch.randn(32, 32)
+                (x @ x).sum()
+    _, events = _trace_events(path)
+    names = [e for e in events if e.get("ph") == "M"
+             and e.get("name") == "process_name"
+             and e["args"]["name"] == "hello_tpu_torch spans"]
+    assert len(names) == 1
+    pid = names[0]["pid"]
+    ours = {e["name"]: e for e in events if e.get("pid") == pid
+            and e.get("ph") == "X"}
+    assert set(ours) == {"test.track", "test.track.child"}
+    assert ours["test.track"]["args"] == {"key": 5, "parent": None}
+    assert ours["test.track.child"]["args"]["parent"] == "test.track"
+    assert not [e for e in events if e.get("pid") == pid
+                and e.get("cat") not in (None, "hello_tpu_torch")]
+    child, parent = ours["test.track.child"], ours["test.track"]
+    assert parent["ts"] <= child["ts"]
+    assert child["ts"] + child["dur"] <= parent["ts"] + parent["dur"] + 1e-3
+    assert telemetry.trace_summary(path)["kernels"] == 0
