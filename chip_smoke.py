@@ -943,6 +943,8 @@ def main_path_phase(workdir):
           "sites": stats["sites"], "records": len(card),
           "seconds": card_s, "windows_per_s": stats["sites"] / card_s,
           "read_conv_reduce_launches": launches, "stages": stages,
+          "graph_counts": scorer.graph_counts,
+          "replayed_launches_by_route": scorer.replayed_launches_by_route,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1]})
@@ -1017,6 +1019,8 @@ def hybrid_path_phase(workdir):
           "sites": stats["sites"], "records": len(card),
           "seconds": card_s, "windows_per_s": stats["sites"] / card_s,
           "read_conv_reduce_launches": launches, "stages": stages,
+          "graph_counts": scorer.graph_counts,
+          "replayed_launches_by_route": scorer.replayed_launches_by_route,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1],
@@ -1114,6 +1118,9 @@ def parallel_path_phase(workdir):
             legs[precision] = {"records": read_vcf(out), "seconds": seconds,
                                "sites": stats["sites"],
                                "launches_by_route": by_route,
+                               "graph_counts": dict(scorer.graph_counts),
+                               "replayed_launches_by_route":
+                                   dict(scorer.replayed_launches_by_route),
                                "stages": {k: stats[k] for k in (
                                    "wait_s", "pack_s", "dispatch_s",
                                    "stage_backpressure_s", "backpressure_s",
@@ -1544,6 +1551,60 @@ BENCH_ARGV = []
 BENCH_CPU_REGION_BP = 300_000
 
 
+def _replay_against_trace(scorer, workdir):
+    """A captured graph's replay, counted against a profiler trace: one
+    batch of 256 Illumina sites through ``scorer`` (on the card, at bf16)
+    three times, the third traced, which replays (the first two run the
+    shape eagerly and capture it, or replay a graph already held).  The
+    kernel launches that the trace lists (kernels named
+    ``read_conv_reduce*``) are above 0 and equal what the Scorer adds to
+    ``replayed_launches_by_route`` for that replay, and the wrapper's own
+    counters do not move.  Returns the readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.bench import build_workload
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.compact import (encode_chunk_sites,
+                                                  pack_sites_wire)
+
+    sites = [dataclasses.replace(s, tensors1=None) for s in
+             build_workload(np.random.RandomState(3), 256, 2, 50, 30)]
+    batch = pack_sites_wire(encode_chunk_sites(sites), hybrid=False)
+    for _ in range(2):
+        scorer.finalize(scorer.score_async(batch, decode=True))
+    counts = dict(scorer.graph_counts)
+    replayed = dict(scorer.replayed_launches_by_route)
+    wrapper = dict(rc.read_conv_reduce.launches_by_route)
+    path = os.path.join(workdir, "replay_trace.json")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scorer.finalize(scorer.score_async(batch, decode=True))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    traced = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "read_conv_reduce" in e.get("name", ""))
+    added = {r: n - replayed[r]
+             for r, n in scorer.replayed_launches_by_route.items()
+             if n != replayed[r]}
+    got = {"graph_counts_before": counts,
+           "graph_counts": dict(scorer.graph_counts),
+           "replayed_launches_added": added,
+           "kernels_in_trace": traced,
+           "wrapper_launches_by_route_unchanged":
+               dict(rc.read_conv_reduce.launches_by_route) == wrapper}
+    if (scorer.graph_counts["replayed"] != counts["replayed"] + 1
+            or traced <= 0 or traced != sum(added.values())
+            or not got["wrapper_launches_by_route_unchanged"]):
+        raise AssertionError(f"a replay's kernel launches against its "
+                             f"trace: {got}")
+    return got
+
+
 def _bench_forwards_against_cpu(outputs):
     """Each device leg's batch-0 forward on the card (from its warm call)
     against the CPU's forward of the same weights on the same batch at
@@ -1614,8 +1675,13 @@ def bench_path_phase(workdir):
     on the first BENCH_CPU_REGION_BP against a CPU call of that region with
     the same weights at bf16: no site flips, genotype flips at most 0.2% of
     the records (the largest and median dQ reported); the training losses
-    finite.  Returns (launches of the bf16 route on the path, the launches
-    of the sums' check)."""
+    finite.  The pipeline's Scorer replays captured graphs of the shapes it
+    met before: its ``graph_counts`` and the launches those replays ran
+    (``replayed_launches_by_route``, apart from the wrapper's counts) are
+    printed, and one replay's launches are held to a profiler trace
+    (_replay_against_trace).  Returns (launches of the bf16 route on the
+    path, the launches of the sums' check, the bf16 route's launches run by
+    the pipeline's replays)."""
     import numpy as np
     import torch
 
@@ -1676,6 +1742,12 @@ def bench_path_phase(workdir):
     del x, rows
 
     pipeline = outputs["pipeline"]
+    scorer = pipeline["scorer"]
+    graph_use = {"graph_counts": dict(scorer.graph_counts),
+                 "replayed_launches_by_route":
+                     dict(scorer.replayed_launches_by_route)}
+    set_precision("bf16")
+    replay_trace = _replay_against_trace(scorer, workdir)
     ds = pipeline["dataset"]
     card = [r for r in pipeline["records"]
             if r.position < BENCH_CPU_REGION_BP]
@@ -1700,6 +1772,7 @@ def bench_path_phase(workdir):
           "leg_seconds": {k: v["seconds"] for k, v in legs.items()},
           "launches_by_leg": {k: v["launches_by_route"]
                               for k, v in legs.items()},
+          "pipeline_graphs": graph_use, "replay_against_trace": replay_trace,
           "train_breakdowns": result["breakdowns"],
           "train_losses": {k: outputs[k] for k in ("train_default",
                                                    "train_bf16")},
@@ -1709,9 +1782,9 @@ def bench_path_phase(workdir):
           "forwards_check_seconds": forwards_s,
           "sums_against_plain": sums, "pipeline_against_cpu": records,
           "seconds": time.perf_counter() - t_phase})
-    del result, outputs, leg, pipeline
+    del result, outputs, leg, pipeline, scorer
     torch.cuda.empty_cache()
-    return launches, checks
+    return launches, checks, graph_use["replayed_launches_by_route"][route]
 
 
 def _swap_check(trained, sites):
@@ -3051,7 +3124,7 @@ def main():
             os.path.join(workdir, "parallel"))
         bench_packed, bench_packed_checks = bench_packed_path_phase()
         bench_read_conv = bench_read_conv_path_phase()
-        bench_launches, bench_checks = bench_path_phase(
+        bench_launches, bench_checks, bench_replayed = bench_path_phase(
             os.path.join(workdir, "bench"))
         configs_path_phase(os.path.join(workdir, "configs"), ds, hybrid_ds,
                            parallel_ds, lines[0])
@@ -3098,6 +3171,10 @@ def main():
             "launches": sum(v if isinstance(v, int) else sum(v.values())
                             for v in paths.values()),
             "launches_by_path": paths,
+            # launches run again by replays of the Scorer's captured graphs,
+            # which the wrapper never made (bench_path's pipeline leg)
+            "replayed_launches_by_path":
+                {"bench_path": bench_replayed} if route == "bf16" else {},
             # launches that hold the kernel to its plain version, apart
             # from the paths' runs
             "check_launches": {"bench_packed_path_vs_plain":

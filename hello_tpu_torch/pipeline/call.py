@@ -18,7 +18,9 @@ Everything runs on the cards unless the caller passes ``device="cpu"``
 (``--device cuda:N`` pins one), and without a card the default raises
 instead of carrying on on the CPU.  ``--profile_dir`` traces the run
 (telemetry.device_trace), the Scorer's spans (``scorer.dispatch`` and its
-``scorer.upload`` and ``scorer.launch``) on a track of their own.
+``scorer.upload`` and ``scorer.launch``, inside which ``scorer.capture`` or
+``scorer.replay`` where a captured CUDA graph runs the forward) on a track
+of their own.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ from ..io.vcf import VcfRecord, make_record, write_vcf
 from ..nn.genotype import decode_batch
 from ..nn import layers as nn_layers
 from ..nn.archs import NAMED_CONFIGS
-from ..nn.moe import MoEAttention, create_model
+from ..nn.moe import MoEAttention, create_model, layer_route_calls
+from ..ops.read_conv import ROUTE_IDS
+from . import graphs
 from .batching import PaddedBatch, SiteWork, group_sites_for_batching, pack_sites
 from .candidates import generate_sites
 from .hotspots import (candidate_intervals, cluster_hotspots, detect_hotspots,
@@ -147,7 +151,16 @@ class Scorer:
     ``A*R`` grid) and ``device_decode`` (decode genotypes on the device and
     fetch 13 bytes per site) default to on for CUDA, as hello_tpu defaults
     them on for accelerators; ``compact`` and ``packed_conv`` default to off
-    on the CPU."""
+    on the CPU.
+
+    On the card each position replays the forward of a batch shape it has
+    met before as a captured CUDA graph (``pipeline/graphs.py``: a shape's
+    first batch runs eagerly, its second is captured); ``graph_counts``
+    counts the batches run ``eager``, ``captured`` and ``replayed``.  The
+    kernel's and the layer route's counters count only what their Python
+    code launches (eager forwards and captures); the launches that later
+    replays run again are ``replayed_launches_by_route`` and
+    ``replayed_layer_route_calls``.  The CPU runs every batch eagerly."""
 
     # consumes pre-coded WireBatch inputs (pack_sites_wire) directly
     accepts_wire = True
@@ -191,6 +204,11 @@ class Scorer:
         self._last_end: Dict[int, torch.cuda.Event] = {}
         self._free_events: Dict[int, list] = {}
         self.peak_concurrent_devices = 0
+        # each position's captured forwards, by batch shape
+        self._graphs = [graphs.GraphCache() for _ in self.devices]
+        self.graph_counts = {"eager": 0, "captured": 0, "replayed": 0}
+        self.replayed_launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
+        self.replayed_layer_route_calls = dict.fromkeys(layer_route_calls, 0)
         self._refresh(0)
 
     @property
@@ -255,15 +273,25 @@ class Scorer:
             rep.folded_from = _versions(params)
         return rep
 
-    def _upload(self, arrays: Dict[str, np.ndarray],
-                device: torch.device) -> Dict[str, torch.Tensor]:
+    def _upload(self, arrays: Dict[str, np.ndarray], device: torch.device,
+                static: Optional[dict] = None) -> Dict[str, torch.Tensor]:
         """numpy wire/dense dict -> tensors on ``device``, through pinned
-        host buffers and asynchronous copies."""
+        host buffers and asynchronous copies; on the card into ``static``'s
+        buffers (a captured graph's inputs, made at its first upload) when
+        given."""
         out = {}
         for k, v in arrays.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
             if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
+                t = t.pin_memory()
+                if static is None:
+                    t = t.to(device, non_blocking=True)
+                else:
+                    buf = static.get(k)
+                    if buf is None:
+                        buf = static[k] = torch.empty(t.shape, dtype=t.dtype,
+                                                      device=device)
+                    t = buf.copy_(t, non_blocking=True)
             out[k] = t
         return out
 
@@ -283,6 +311,29 @@ class Scorer:
                 batch["allele_mask"], batch["ref_segments"].shape[0])
         return out
 
+    def _launch(self, pos: int, rep: _Replica, d, decode,
+                graph: Optional[graphs.Graph], seq: int):
+        """Enqueue the forward: eagerly without ``graph``, else by replaying
+        it, captured first if it is empty."""
+        if graph is None:
+            self.graph_counts["eager"] += 1
+            return self._forward(rep, d, decode)
+        if graph.graph is None:
+            with telemetry.stage("scorer.capture", key=seq):
+                self._graphs[pos].capture(
+                    graph, lambda: self._forward(rep, d, decode),
+                    self.devices[pos])
+            self.graph_counts["captured"] += 1
+        else:
+            with telemetry.stage("scorer.replay", key=seq):
+                graph.graph.replay()
+            self.graph_counts["replayed"] += 1
+            for route, n in graph.launches.items():
+                self.replayed_launches_by_route[route] += n
+            for name, n in graph.layer_route_calls.items():
+                self.replayed_layer_route_calls[name] += n
+        return graph.outputs
+
     def score_async(self, batch: PaddedBatch, decode: bool = False) -> Dispatched:
         """Dispatch the forward to the next device of the round robin
         without waiting for it; the results' device-to-host copies start at
@@ -295,9 +346,10 @@ class Scorer:
         Spans (``telemetry.stage``, keyed by the batch's number):
         ``scorer.dispatch`` over the call, ``scorer.upload`` over the
         uploads, ``scorer.launch`` over the expansion, the forward and the
-        decode, all enqueued.  On the card two timed events bracket the
-        batch's work, from which ``finalize_many`` records the card's idle
-        before it (``scorer.card_wait``)."""
+        decode, all enqueued, and inside it ``scorer.capture`` or
+        ``scorer.replay`` where a graph runs them.  On the card two timed
+        events bracket the batch's work, from which ``finalize_many``
+        records the card's idle before it (``scorer.card_wait``)."""
         seq = self._next
         self._next += 1
         with telemetry.stage("scorer.dispatch", key=seq) as t0:
@@ -313,15 +365,22 @@ class Scorer:
             device = self.devices[pos]
             rep = self._refresh(pos)
             on_card = device.type == "cuda"
+            graph = None
+            if on_card:
+                graph = self._graphs[pos].lookup(
+                    graphs.graph_key(d, rep.generation, nn_layers.PRECISION,
+                                     decode, self.packed_conv),
+                    rep.generation)
             with torch.inference_mode(), _on(device):
                 if on_card:
                     free = self._free_events.setdefault(pos, [])
                     started = telemetry.timed_event(free)
                     started.record()
                 with telemetry.stage("scorer.upload", key=seq):
-                    d = self._upload(d, device)
+                    d = self._upload(d, device,
+                                     None if graph is None else graph.inputs)
                 with telemetry.stage("scorer.launch", key=seq):
-                    out = self._forward(rep, d, decode)
+                    out = self._launch(pos, rep, d, decode, graph, seq)
                 if not on_card:
                     return self._account(Dispatched(out, position=pos))
                 host = {}
