@@ -39,6 +39,12 @@ the *layer route* in eval mode: its layer modules under ``torch.no_grad()``,
 then the per-allele sum, as hello_tpu sends the networks its Pallas kernel
 does not implement to its XLA layers.  The route is decided once per fold,
 by topology alone (``fold_read_convs``), never because a kernel failed.
+Over packed rows its sum runs in a fixed order (``ordered_read_reduce``),
+so two runs of one batch give the same bits on the card, where
+``index_add_``'s atomics would not.  ``layer_route_calls`` and
+``layer_route_rows`` count its calls and the rows they computed; given a
+``stamps`` tensor on the card, ``forward`` brackets each layer-route read
+convolver with two stamps of the card's clock (``ops.card_stamp``).
 
 In train mode (``model.train()``) the read convolvers run through their
 layer modules under autograd instead, as hello_tpu's train-mode forward
@@ -61,18 +67,24 @@ from . import archs
 from . import layers as L
 from .convert import _TORCH_ATTR
 from .layers import build_network
+from ..ops.card_stamp import card_stamp
 from ..ops.read_conv import (fold_read_conv_weights, read_conv_reduce,
                              route_for_precision, supports_read_convolver)
 
 #: eval-mode read reductions that took the layer route, per read convolver
 #: (the kernel's launches are ``read_conv_reduce.launches_by_route``)
 layer_route_calls = {"read_conv0": 0, "read_conv1": 0}
+#: the read rows those reductions computed, padding rows included (packed
+#: rows, or the dense ``A*R`` grid)
+layer_route_rows = {"read_conv0": 0, "read_conv1": 0}
 
 
 def reset_layer_route_calls():
-    """Set every count of ``layer_route_calls`` to 0."""
-    for name in layer_route_calls:
-        layer_route_calls[name] = 0
+    """Set every count of ``layer_route_calls`` and ``layer_route_rows`` to
+    0."""
+    for counts in (layer_route_calls, layer_route_rows):
+        for name in counts:
+            counts[name] = 0
 
 
 class LayerRoute:
@@ -91,6 +103,29 @@ def packed_read_reduce(frames, row_allele, row_valid, num_alleles):
     out = frames.new_zeros((num_alleles + 1,) + tuple(frames.shape[1:]))
     out.index_add_(0, row_allele.long(), frames)
     return out[:num_alleles]
+
+
+def ordered_read_reduce(frames, row_allele, row_valid, num_alleles,
+                        reads_per_allele):
+    """``packed_read_reduce`` with the sum in a fixed order: each real row's
+    frame goes to its place (allele, rank among that allele's rows in row
+    order) of a dense ``[A, R]`` grid, ``R = reads_per_allele`` (the wire's
+    read bucket, at least any allele's rows), and the grid is summed over
+    ``R``.  The same bits on every run, where ``index_add_`` on the card
+    adds with atomics in the order the rows happen to land; no host sync,
+    so it runs inside a captured graph.  Rows with ``row_valid == 0`` or
+    ``row_allele == A`` go to a dropped place."""
+    A, R = num_alleles, reads_per_allele
+    allele = torch.where(row_valid > 0, row_allele.long(), A)
+    ordered, order = torch.sort(allele, stable=True)
+    first = torch.searchsorted(ordered, ordered)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=order.device) - first
+    place = torch.where(allele < A, allele * R + rank, A * R)
+    tail = tuple(frames.shape[1:])
+    grid = frames.new_zeros((A * R + 1,) + tail, dtype=torch.float32)
+    grid.index_copy_(0, place, frames.float())
+    return grid[:A * R].view((A, R) + tail).sum(dim=1)
 
 
 def masked_read_sum(read_frames, read_mask):
@@ -193,14 +228,18 @@ class MoEAttention(nn.Module):
         """Platform k's reads through the read convolver's layer modules
         (cuDNN on the card), then the masked per-allele sum, as hello_tpu's
         layer path does; packed rows or the dense ``A*R`` grid.  Under
-        autograd in train mode; the layer route in eval mode."""
+        autograd in train mode; the layer route in eval mode, whose packed
+        rows sum in a fixed order (``ordered_read_reduce``)."""
         name = f"read_conv{k}"
         if f"rows{k}" in batch:
-            A = batch[f"read_mask{k}"].shape[0]
+            A, R = batch[f"read_mask{k}"].shape
             row_valid = batch[f"row_valid{k}"].float()
             frames = self._run(name, batch[f"rows{k}"].float(), row_valid)
-            return packed_read_reduce(frames, batch[f"row_allele{k}"],
-                                      row_valid, A)
+            if self.training:
+                return packed_read_reduce(frames, batch[f"row_allele{k}"],
+                                          row_valid, A)
+            return ordered_read_reduce(frames, batch[f"row_allele{k}"],
+                                       row_valid, A, R)
         reads = batch[f"reads{k}"]
         A, R = reads.shape[:2]
         mask = batch[f"read_mask{k}"].float()
@@ -210,16 +249,27 @@ class MoEAttention(nn.Module):
         frames = frames.reshape((A, R) + tuple(frames.shape[1:]))
         return masked_read_sum(frames, mask)
 
-    def _read_reduce(self, batch, k, folded):
+    def _read_reduce(self, batch, k, folded, stamps=None):
         """Platform k's reads -> per-allele sum of read-convolver frames
-        [A, 36, 64], packed rows or the dense grid flattened to rows."""
+        [A, 36, 64], packed rows or the dense grid flattened to rows.  On
+        the layer route, ``stamps`` (int64 [read convolvers, 2] on the card,
+        or None) gets the card's clock before and after in row k."""
         if self.training:
             return self._read_reduce_layers(batch, k)
         route = folded[f"read_conv{k}"]
         if isinstance(route, LayerRoute):
-            layer_route_calls[f"read_conv{k}"] += 1
+            name = f"read_conv{k}"
+            layer_route_calls[name] += 1
+            layer_route_rows[name] += (
+                batch[f"rows{k}"].shape[0] if f"rows{k}" in batch
+                else batch[f"reads{k}"].shape[0] * batch[f"reads{k}"].shape[1])
+            if stamps is not None:
+                card_stamp(stamps[k, 0])
             with torch.no_grad():
-                return self._read_reduce_layers(batch, k)
+                out = self._read_reduce_layers(batch, k)
+            if stamps is not None:
+                card_stamp(stamps[k, 1])
+            return out
         if f"rows{k}" in batch:
             A = batch[f"read_mask{k}"].shape[0]
             rows = batch[f"rows{k}"]
@@ -236,10 +286,13 @@ class MoEAttention(nn.Module):
         return read_conv_reduce(rows, row_allele, row_valid,
                                 folded[f"read_conv{k}"], A)
 
-    def forward(self, batch, folded=None):
+    def forward(self, batch, folded=None, stamps=None):
         """Forward -> {"experts": [A, E] raw logits, "meta": [S, 3] softmax
         weights or None}; E is 1 (single-tech, hybrid no-ensemble) or 3
         (experts 0, 1, 2; zeros for expert 2 when the config has none).
+        ``stamps`` (eval mode on the card: int64 [read convolvers, 2]) gets,
+        in row k, the card's clock before and after read convolver k where
+        it takes the layer route; its other rows are left as they are.
 
         Eval mode reduces the reads through ``read_conv_reduce`` with the
         folded weights, or through the layer route (``folded``:
@@ -265,13 +318,13 @@ class MoEAttention(nn.Module):
         # the rows of the allele and site axes that are real, for batch norm
         masks = dict(allele_mask=batch["allele_mask"].float(),
                      site_mask=(site_onehot.sum(dim=0) > 0).float())
-        reduced0 = self._read_reduce(batch, 0, folded)
+        reduced0 = self._read_reduce(batch, 0, folded, stamps)
         e0, f0, ca0 = self._compress_and_predict(0, reduced0, site_onehot,
                                                  site_ids, **masks)
         if not self.hybrid:
             return {"experts": e0, "meta": None}
 
-        reduced1 = self._read_reduce(batch, 1, folded)
+        reduced1 = self._read_reduce(batch, 1, folded, stamps)
         e1, f1, ca1 = self._compress_and_predict(1, reduced1, site_onehot,
                                                  site_ids, **masks)
         if self.net("compressor2") is not None:

@@ -20,7 +20,8 @@ instead of carrying on on the CPU.  ``--profile_dir`` traces the run
 (telemetry.device_trace), the Scorer's spans (``scorer.dispatch`` and its
 ``scorer.upload`` and ``scorer.launch``, inside which ``scorer.capture`` or
 ``scorer.replay`` where a captured CUDA graph runs the forward) on a track
-of their own.
+of their own, and the card's time in layer-route read convolvers
+(``scorer.read_conv_layers``).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ from ..io.vcf import VcfRecord, make_record, write_vcf
 from ..nn.genotype import decode_batch
 from ..nn import layers as nn_layers
 from ..nn.archs import NAMED_CONFIGS
-from ..nn.moe import MoEAttention, create_model, layer_route_calls
+from ..nn.moe import (LayerRoute, MoEAttention, create_model,
+                      layer_route_calls)
 from ..ops.read_conv import ROUTE_IDS
 from . import graphs
 from .batching import PaddedBatch, SiteWork, group_sites_for_batching, pack_sites
@@ -93,7 +95,8 @@ class Dispatched:
     device-to-host copies still in flight until ``event`` completes), and
     the position in ``Scorer.devices`` it ran on.  On the card, ``wait``
     holds what ``finalize_many`` records as ``scorer.card_wait``
-    (``telemetry.record_card_wait``) until it has recorded it."""
+    (``telemetry.record_card_wait``), and as ``scorer.read_conv_layers``
+    where ``out`` holds ``read_conv_stamps``, until it has recorded it."""
     out: Dict[str, Optional[torch.Tensor]]
     event: Optional[torch.cuda.Event] = None
     position: int = 0
@@ -159,8 +162,16 @@ class Scorer:
     counts the batches run ``eager``, ``captured`` and ``replayed``.  The
     kernel's and the layer route's counters count only what their Python
     code launches (eager forwards and captures); the launches that later
-    replays run again are ``replayed_launches_by_route`` and
-    ``replayed_layer_route_calls``.  The CPU runs every batch eagerly."""
+    replays run again are ``replayed_launches_by_route``,
+    ``replayed_layer_route_calls`` and ``replayed_layer_route_rows``.  The
+    CPU runs every batch eagerly.
+
+    On the card a forward with a layer-route read convolver also returns
+    ``read_conv_stamps`` (int64 [read convolvers, 2]: the card's clock
+    before and after each, ``MoEAttention.forward``), copied to the host
+    with the answers; ``finalize_many`` records their time as
+    ``scorer.read_conv_layers``, so eager, captured and replayed batches
+    each carry their own.  The kernel route ships no stamps."""
 
     # consumes pre-coded WireBatch inputs (pack_sites_wire) directly
     accepts_wire = True
@@ -209,6 +220,7 @@ class Scorer:
         self.graph_counts = {"eager": 0, "captured": 0, "replayed": 0}
         self.replayed_launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
         self.replayed_layer_route_calls = dict.fromkeys(layer_route_calls, 0)
+        self.replayed_layer_route_rows = dict.fromkeys(layer_route_calls, 0)
         self._refresh(0)
 
     @property
@@ -303,12 +315,19 @@ class Scorer:
         else:
             from .compact import expand_compact
             batch = expand_compact(d)          # no-op for dense batches
-        out = rep.model(batch, folded=rep.folded)
+        stamps = None
+        if batch["site_ids"].is_cuda and any(
+                isinstance(f, LayerRoute) for f in rep.folded.values()):
+            stamps = torch.zeros((len(rep.folded), 2), dtype=torch.int64,
+                                 device=batch["site_ids"].device)
+        out = rep.model(batch, folded=rep.folded, stamps=stamps)
         if decode:
             from ..nn.genotype import decode_pairs_device
-            return decode_pairs_device(
+            out = decode_pairs_device(
                 out["experts"], out["meta"], batch["site_ids"],
                 batch["allele_mask"], batch["ref_segments"].shape[0])
+        if stamps is not None:
+            out = dict(out, read_conv_stamps=stamps)
         return out
 
     def _launch(self, pos: int, rep: _Replica, d, decode,
@@ -332,6 +351,8 @@ class Scorer:
                 self.replayed_launches_by_route[route] += n
             for name, n in graph.layer_route_calls.items():
                 self.replayed_layer_route_calls[name] += n
+            for name, n in graph.layer_route_rows.items():
+                self.replayed_layer_route_rows[name] += n
         return graph.outputs
 
     def score_async(self, batch: PaddedBatch, decode: bool = False) -> Dispatched:
@@ -349,7 +370,9 @@ class Scorer:
         decode, all enqueued, and inside it ``scorer.capture`` or
         ``scorer.replay`` where a graph runs them.  On the card two timed
         events bracket the batch's work, from which ``finalize_many``
-        records the card's idle before it (``scorer.card_wait``)."""
+        records the card's idle before it (``scorer.card_wait``), and the
+        batch's stamps, where it has any, give ``scorer.read_conv_layers``
+        there."""
         seq = self._next
         self._next += 1
         with telemetry.stage("scorer.dispatch", key=seq) as t0:
@@ -437,10 +460,15 @@ class Scorer:
                 if r.outstanding:
                     r.outstanding = False
                     self._outstanding[r.position] -= 1
-                # its first event is complete once its end event is
+                # its first event, and its stamps' copy, are complete once
+                # its end event is
                 if r.wait is not None and (r.event is newest[r.position]
                                            or r.event.query()):
                     telemetry.record_card_wait("scorer.card_wait", r.wait)
+                    stamps = r.out.get("read_conv_stamps")
+                    if stamps is not None:     # (start ns, key) as card_wait
+                        telemetry.record_stamps("scorer.read_conv_layers",
+                                                stamps, *r.wait[2:4])
                 r.wait = None
         return [self._host_form(r.out) for r in results]
 

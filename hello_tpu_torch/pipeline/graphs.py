@@ -34,13 +34,14 @@ replay is enqueued, so one graph's scratch may reuse another's.
 
 The launch counters of the kernel's wrapper (``read_conv_reduce.launches``,
 ``launches_by_route``, ``FoldedReadConv.launches``) and of the layer route
-(``moe.layer_route_calls``) count what the Python code launches: the eager
-forwards, and the forward a capture records into its graph (which that
-batch's first replay runs).  A later replay runs the graph's launches again
-without the wrappers: ``Graph.launches`` and ``Graph.layer_route_calls``
-hold what its capture added, and the Scorer adds them to its own
-``replayed_launches_by_route`` and ``replayed_layer_route_calls`` at each
-replay.
+(``moe.layer_route_calls``, ``moe.layer_route_rows``) count what the Python
+code launches: the eager forwards, and the forward a capture records into
+its graph (which that batch's first replay runs).  A later replay runs the
+graph's launches again without the wrappers: ``Graph.launches``,
+``Graph.layer_route_calls`` and ``Graph.layer_route_rows`` hold what its
+capture added, and the Scorer adds them to its own
+``replayed_launches_by_route``, ``replayed_layer_route_calls`` and
+``replayed_layer_route_rows`` at each replay.
 """
 
 from __future__ import annotations
@@ -61,12 +62,13 @@ def graph_key(arrays: Mapping, generation: int, precision: str,
 
 
 def launch_counts():
-    """(the kernel's launches by route, the layer route's calls by read
-    convolver), as their counters read now."""
+    """(the kernel's launches by route, the layer route's calls and rows by
+    read convolver), as their counters read now."""
     from ..nn import moe
     from ..ops.read_conv import read_conv_reduce as rc
 
-    return dict(rc.launches_by_route), dict(moe.layer_route_calls)
+    return (dict(rc.launches_by_route), dict(moe.layer_route_calls),
+            dict(moe.layer_route_rows))
 
 
 def _added(after: Mapping, before: Mapping) -> Dict[str, int]:
@@ -78,10 +80,10 @@ class Graph:
     """One key's captured forward: its static input buffers (each batch's
     upload lands in them), the graph, its static outputs, and what its
     capture added to the kernel's launches by route and to the layer
-    route's calls.  Empty until ``GraphCache.capture``."""
+    route's calls and rows.  Empty until ``GraphCache.capture``."""
 
     __slots__ = ("key", "inputs", "graph", "outputs", "launches",
-                 "layer_route_calls")
+                 "layer_route_calls", "layer_route_rows")
 
     def __init__(self, key: tuple):
         self.key = key
@@ -90,6 +92,7 @@ class Graph:
         self.outputs = None
         self.launches: Dict[str, int] = {}
         self.layer_route_calls: Dict[str, int] = {}
+        self.layer_route_rows: Dict[str, int] = {}
 
 
 class GraphCache:
@@ -146,7 +149,7 @@ class GraphCache:
             self.stream = torch.cuda.Stream(device)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        launches, layer_routes = launch_counts()
+        before = launch_counts()
         cuda_graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self.stream):
             cuda_graph.capture_begin(pool=self.pool,
@@ -155,9 +158,8 @@ class GraphCache:
                 outputs = forward()
             finally:
                 cuda_graph.capture_end()
-        now = launch_counts()
-        graph.launches = _added(now[0], launches)
-        graph.layer_route_calls = _added(now[1], layer_routes)
+        (graph.launches, graph.layer_route_calls,
+         graph.layer_route_rows) = map(_added, launch_counts(), before)
         graph.graph, graph.outputs = cuda_graph, outputs
         self.graphs[graph.key] = graph
         cuda_graph.replay()

@@ -147,6 +147,24 @@ def record_card_wait(name: str, wait: tuple):
     free.append(started)
 
 
+def stamped_ns(stamps) -> Optional[int]:
+    """The card's time between each pair of stamps of its clock
+    (``ops.card_stamp``): ``stamps`` is [pairs, 2] of ns (start, end), a
+    pair left 0 where nothing was stamped; the sum over the stamped pairs,
+    or None when none was."""
+    pairs = [(int(a), int(b)) for a, b in stamps.tolist() if a and b]
+    return sum(b - a for a, b in pairs) if pairs else None
+
+
+def record_stamps(name: str, stamps, start_ns: int, key=None):
+    """Record, under ``name``, the card's time between ``stamps``' pairs
+    (``stamped_ns``), stamped with the host's ``start_ns`` of the work they
+    lie in and its ``key``; nothing when no pair was stamped."""
+    dur = stamped_ns(stamps)
+    if dur is not None:
+        record(name, start_ns, dur, key)
+
+
 def add(name: str, seconds: float, calls: int = 1):
     """Accumulate externally-measured time into a stage (e.g. timings that
     accrued in a worker/drainer thread's own dict)."""

@@ -8,20 +8,28 @@ keys eagerly, evicting none and keeping no sighting; a replay adds what its
 capture launched to the Scorer's replayed counts and leaves the wrappers'
 counters alone.
 
-On the card (marked ``card``; each skips without one): for ``hybrid`` and
-``illumina`` at ``bf16`` and ``highest``, over two wire shapes, decoded and
-not, the answers of captured and replayed batches are bit-equal to eager
-``Scorer._forward`` of the same batch (at most 5 reads per allele, so that
-the read convolver kernel's per-allele atomics add at most two terms into
-each output and the eager answer itself is the same on every run); a
+On the card (marked ``card``; each skips without one): for ``hybrid``,
+``illumina`` and ``illumina_wide`` (the layer route, whose per-allele sum
+runs in a fixed order) at ``bf16`` and ``highest``, over two wire shapes,
+decoded and not, the answers of captured and replayed batches are
+bit-equal to eager ``Scorer._forward`` of the same batch (at most 5 reads
+per allele, so that the read convolver kernel's per-allele atomics add at
+most two terms into each output and the eager answer itself is the same
+on every run); a
 ``load_state_dict`` between batches drops the graphs and the answers
 follow the new weights; the wrappers' launch counters count the eager and
 captured batches and the Scorer's replayed counts the replays, together what
 eager runs of the same batches count, on the kernel route and the layer
 route; a thread that finalizes earlier batches while a capture runs, as
 ``call_parallel``'s drainer does, neither breaks the capture nor changes an
-answer; and a capture returns while the card is still busy with earlier
-work.
+answer; a capture returns while the card is still busy with earlier
+work; the card's stamps around ``illumina_wide``'s layer-route read
+convolver give replayed batches ``scorer.read_conv_layers`` records that
+agree with eager ones of the same shape; and one replay under the
+profiler runs one pair of stamp kernels for the read convolver while the
+Scorer's replayed ``layer_route_rows`` grow by what an eager batch of the
+same shape computes; the kernel route (``hybrid``, ``illumina``) ships no
+stamps and records no ``scorer.read_conv_layers``.
 
 Imports no JAX: on the card, run it alone with ``python -m pytest
 --noconftest tests/test_torch_scorer_graphs.py``.
@@ -41,7 +49,7 @@ from hello_tpu_torch.nn import layers
 from hello_tpu_torch.nn import moe
 from hello_tpu_torch.nn.convert import init_params
 from hello_tpu_torch.nn.moe import create_model
-from hello_tpu_torch.ops import read_conv
+from hello_tpu_torch.ops import card_stamp, read_conv
 from hello_tpu_torch.pipeline import graphs
 from hello_tpu_torch.pipeline.batching import pack_sites
 from hello_tpu_torch.pipeline.call import Scorer
@@ -75,13 +83,16 @@ def counters():
     """Leave the process's launch counters as the test found them."""
     rc = read_conv.read_conv_reduce
     by_route = rc.launches_by_route
-    saved = (rc.launches, dict(by_route), dict(moe.layer_route_calls))
+    saved = (rc.launches, dict(by_route), dict(moe.layer_route_calls),
+             dict(moe.layer_route_rows))
     yield
     rc.launches, rc.launches_by_route = saved[0], by_route
     by_route.clear()
     by_route.update(saved[1])
     moe.layer_route_calls.clear()
     moe.layer_route_calls.update(saved[2])
+    moe.layer_route_rows.clear()
+    moe.layer_route_rows.update(saved[3])
 
 
 def _model(name, seed=0):
@@ -270,7 +281,7 @@ def _equal(got, want):
 
 @pytest.mark.card
 @pytest.mark.parametrize("precision", ["bf16", "highest"])
-@pytest.mark.parametrize("name", ["hybrid", "illumina"])
+@pytest.mark.parametrize("name", ["hybrid", "illumina", "illumina_wide"])
 def test_replayed_answers_are_bit_equal_to_eager(card, name, precision):
     layers.set_precision(precision)
     scorer = Scorer(_model(name), device=card)
@@ -411,3 +422,90 @@ def test_a_thread_finalizing_during_a_capture(card):
     assert any(cap.start_ns <= c <= cap.end_ns for c in calls)
     for g in got:
         _equal(g, want)
+
+
+def _layer_records(scorer, batches):
+    """Score ``batches`` one at a time: each batch's
+    ``scorer.read_conv_layers`` record in ms, in order."""
+    t0 = telemetry.now_ns()
+    first = scorer._next
+    for b in batches:
+        scorer.finalize(scorer.score_async(b, decode=True))
+    got = {s.key: (s.end_ns - s.start_ns) / 1e6
+           for s in telemetry.spans(t0, telemetry.now_ns())
+           if s.name == "scorer.read_conv_layers"}
+    return [got[first + k] for k in range(len(batches))]
+
+
+@pytest.mark.card
+def test_replayed_stamps_agree_with_eager_ones(card, monkeypatch):
+    layers.set_precision("bf16")
+    # 64 sites x 2 alleles x 20 reads: some 5 ms of the card's a batch, so
+    # that an eager batch's enqueue runs ahead of the card as a replay does
+    shape = (64, 2, 20, 0)
+    batches = [_wire(False, shape, seed) for seed in range(7)]
+    replaying = Scorer(_model("illumina_wide"), device=card)
+    got = _layer_records(replaying, batches)
+    # eager, captured, then five replays
+    assert replaying.graph_counts == {"eager": 1, "captured": 1,
+                                      "replayed": 5}
+    replayed = got[2:]
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 0)      # every batch eager
+    eager_scorer = Scorer(_model("illumina_wide"), device=card)
+    eager = _layer_records(eager_scorer, batches)[1:]  # the first warms up
+    assert eager_scorer.graph_counts["replayed"] == 0
+    assert all(ms > 0 for ms in got + eager)
+    lo, hi = min(eager), max(eager)
+    pad = max(hi - lo, 0.1 * float(np.median(eager)))
+    assert lo - pad <= float(np.median(replayed)) <= hi + pad, (eager,
+                                                               replayed)
+
+
+@pytest.mark.card
+def test_a_replay_stamps_its_layer_route_read_convolver_once(card, counters):
+    from torch.profiler import ProfilerActivity, profile
+
+    layers.set_precision("bf16")
+    scorer = Scorer(_model("illumina_wide"), device=card)
+    batch = _wire(False, SHAPES[1], 1)
+    before = dict(moe.layer_route_rows)
+    scorer.finalize(scorer.score_async(batch, decode=True))      # eager
+    eager_rows = {k: n - before[k] for k, n in moe.layer_route_rows.items()}
+    assert eager_rows == {"read_conv0": batch.wire["codes0"].shape[0],
+                          "read_conv1": 0}
+    scorer.finalize(scorer.score_async(batch, decode=True))      # capture
+    wrapper = (dict(moe.layer_route_rows), card_stamp.card_stamp.launches)
+    replayed = dict(scorer.replayed_layer_route_rows)
+    t0 = telemetry.now_ns()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scorer.finalize(scorer.score_async(batch, decode=True))  # replay
+        torch.cuda.synchronize(card)
+    assert scorer.graph_counts == {"eager": 1, "captured": 1, "replayed": 1}
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("card_stamp_kernel" in n for n in kernels) == 2, kernels
+    assert {k: n - replayed[k] for k, n in
+            scorer.replayed_layer_route_rows.items()} == eager_rows
+    # the wrappers count nothing for a replay
+    assert (dict(moe.layer_route_rows),
+            card_stamp.card_stamp.launches) == wrapper
+    rec, = [s for s in telemetry.spans(t0, telemetry.now_ns())
+            if s.name == "scorer.read_conv_layers"]
+    assert rec.key == scorer._next - 1 and rec.end_ns > rec.start_ns
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["hybrid", "illumina"])
+def test_the_kernel_route_ships_no_stamps(card, name):
+    layers.set_precision("bf16")
+    scorer = Scorer(_model(name), device=card)
+    batch = _wire(scorer.model.hybrid, SHAPES[0], 1)
+    t0 = telemetry.now_ns()
+    for _ in range(3):                       # eager, captured, replayed
+        got = scorer.score_async(batch, decode=True)
+        assert "read_conv_stamps" not in got.out
+        scorer.finalize(got)
+    assert scorer.graph_counts == {"eager": 1, "captured": 1, "replayed": 1}
+    names = {s.name for s in telemetry.spans(t0, telemetry.now_ns())}
+    assert "scorer.card_wait" in names
+    assert "scorer.read_conv_layers" not in names
