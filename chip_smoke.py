@@ -45,7 +45,14 @@ Phases, each printing one JSON line:
              published tensor-core peak, its bound_ms, and the share of it
              the kernel reaches; at the probe's mma.sync rate; at the
              probe's wgmma rate of each conv's N for the route's
-             instruction; fp32 FMA), and each route's launch shape;
+             instruction; fp32 FMA), and each route's launch shape.  Then
+             the wide read convolver's kernel (width 2, bf16, illumina_wide's
+             weights, C = 6) on the same rows, held as the bf16 route, two
+             runs bit-equal, its median of 20 launches beside the width-1
+             bf16 route's and the layer route's at bf16; and held so on the
+             benchmark cell's batch (2,048 alleles of 20 to 60 reads) packed
+             and dense, whose answers agree to the sums' order, and packed
+             at C = 7;
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -201,7 +208,7 @@ Phases, each printing one JSON line:
              (dispatch counts, peak concurrency), coded and packed against
              dense, coded-wire training loss against dense;
   configs_path  (after parallel_path) the five configs whose read
-             convolvers the kernel does not implement (illumina_addendum on
+             convolvers the width-1 kernel does not implement (illumina_addendum on
              main_path's genome; illumina_wide and illumina_layer_norm on
              parallel_path's; hybrid_no_ensemble_wide and _addendum on the
              first 100 kb of hybrid_path's), full width, seeded weights, at
@@ -210,9 +217,15 @@ Phases, each printing one JSON line:
              every read convolver on the layer route (its layers under
              no_grad; layer_route_calls > 0) and no launch of
              read_conv_reduce; illumina_wide and illumina_layer_norm also at
-             bf16: every layer on the card fed the CPU's own bf16 input
+             bf16 on the layer route (illumina_wide's pinned): every layer on
+             the card fed the CPU's own bf16 input
              (equal but for 0.2% of values, each within two bf16 ulps), and
-             the records held as parallel_path holds bf16; card seconds and
+             the records held as parallel_path holds bf16; illumina_wide
+             then on its wide kernel (width-2 launches only), held as
+             parallel_path holds bf16 but with the median site at most
+             WIDE_KERNEL_MEDIAN_BAR (0.75) of bf16's own distance from the
+             CPU's bf16, a bar between the kernel's readings and those of
+             planted faults; card seconds and
              windows/s per config; the layer route's read-convolver ms by
              CUDA events at the kernel phase's packed-row shape, highest and
              bf16, beside read_conv_reduce's;
@@ -299,12 +312,12 @@ def card_peaks(name):
             "bf16": p["bf16"] * 1e12, "bytes": p["hbm_gbs"] * 1e9}
 
 
-def macs_per_row(channels, co=None):
-    """fp32 multiply-adds of the read convolver for one read row (of its
-    convs with ``co`` output channels, if given)."""
-    from hello_tpu_torch.ops.read_conv import _EXPECTED_TAIL_SHAPES
+def macs_per_row(channels, co=None, width=1):
+    """fp32 multiply-adds of the read convolver of ``width`` for one read
+    row (of its convs with ``co`` output channels, if given)."""
+    from hello_tpu_torch.ops.read_conv import conv_shapes
 
-    shapes = [(16, 3 * channels)] + _EXPECTED_TAIL_SHAPES
+    shapes = conv_shapes(channels, width)
     lengths = [148, 146, 144] + [71] * 6 + [36] * 3 + [36] * 6
     return sum(c * kc * lo for (c, kc), lo in zip(shapes, lengths)
                if co in (None, c))
@@ -842,6 +855,171 @@ def kernel_phase(name, channels, seed, rates):
     return lines
 
 
+#: the benchmark cell's batch for the wide kernel's legs: alleles, and the
+#: reads per allele, uniform over [lo, hi] (h100_bench.generator's
+#: read_counts); packed rows are padded to a multiple of this
+CELL_ALLELES, CELL_READS, CELL_ROW_BUCKET = 2048, (20, 60), 4096
+
+
+def cell_inputs(rng, channels, device):
+    """The cell's reads twice, the same bytes: packed (each allele's rows
+    together, then padding rows up to the bucket) and as the dense [A, 60]
+    grid flattened to rows (each allele's reads first, the rest masked).
+    An allele's run of up to 60 rows covers a block's whole nominal span
+    of the wide kernel (40 rows), on both layouts.  Returns ((rows,
+    row_allele, row_valid) packed, the same dense, A)."""
+    import numpy as np
+    import torch
+
+    A, (lo, hi) = CELL_ALLELES, CELL_READS
+    counts = rng.permutation(lo + (np.arange(A) * (hi - lo + 1)) // A)
+    allele = np.repeat(np.arange(A, dtype=np.int32), counts)
+    n_pad = (-len(allele)) % CELL_ROW_BUCKET
+    packed_allele = np.concatenate([allele, np.full(n_pad, A, np.int32)])
+    rows = rng.randint(0, 256, (len(packed_allele), 150, channels),
+                       dtype=np.uint8)
+    grid = np.zeros((A * hi, 150, channels), np.uint8)
+    slot = (np.arange(len(allele)) - np.repeat(np.cumsum(counts) - counts,
+                                               counts))
+    grid[allele * hi + slot] = rows[:len(allele)]
+    mask = (np.arange(hi)[None, :] < counts[:, None]).astype(np.float32)
+    to = lambda *a: [torch.from_numpy(x).to(device) for x in a]
+    return (to(rows, packed_allele, (packed_allele < A).astype(np.float32)),
+            to(grid, (np.arange(A * hi) // hi).astype(np.int32),
+               mask.reshape(-1)), A)
+
+
+def _wide_leg(net, rows, row_allele, row_valid, A, zero_alleles=()):
+    """One leg of the wide kernel against its plain version: (the kernel's
+    answer, the leg's line, whether it holds: max abs error at most a
+    quarter of the plain bf16 version's distance from fp32, alleles with no
+    computed row exactly zero, two runs bit-equal, two launches counted in
+    ``launches_by_width[2]``, every value finite), and its fold."""
+    import torch
+
+    from hello_tpu_torch.ops import read_conv as rc
+
+    C = rows.shape[2]
+    folded = rc.fold_read_conv_weights(net, "bf16")
+    # the fp32 weights for the yardstick (the plain version reads only the
+    # convs and the route)
+    ws = [t.detach().float() for t in rc.extract_read_conv_weights(net)]
+    fp32 = rc.FoldedReadConv(tuple(zip(ws[0::2], ws[1::2])), folded.flat, C,
+                             "tf32x3", width=2)
+    exact = _plain(rows, row_allele, row_valid, fp32, A, tf32=False)
+    before = dict(rc.read_conv_reduce.launches_by_width)
+    got = rc.read_conv_reduce(rows, row_allele, row_valid, folded, A)
+    again = rc.read_conv_reduce(rows, row_allele, row_valid, folded, A)
+    torch.cuda.synchronize()
+    launched = {w: n - before[w] for w, n in
+                rc.read_conv_reduce.launches_by_width.items()}
+    want = _plain(rows, row_allele, row_valid, folded, A, False)
+    err = (got - want).abs().max().item()
+    bf16_vs_fp32 = (want - exact).abs().max().item()
+    zero_idx = torch.as_tensor(zero_alleles, dtype=torch.long,
+                               device=rows.device)
+    zeros_exact = bool((got[zero_idx] == 0).all())
+    bit_equal = bool(torch.equal(got, again))
+    line = {"phase": "kernel", "kernel": "read_conv_reduce_wide",
+            "kernel_route": "bf16", "width": 2, "C": C, "nb": rows.shape[0],
+            "A": A, "rows_computed": int(((row_valid != 0)
+                                          & (row_allele < A)).sum().item()),
+            "max_abs_err": err, "plain_bf16_vs_fp32_max_abs": bf16_vs_fp32,
+            "err_over_plain_bf16_vs_fp32": err / bf16_vs_fp32,
+            "mean_abs_err_over_plain_bf16_vs_fp32":
+                ((got - want).abs().mean() / (want - exact).abs().mean()).item(),
+            "bar": "max_abs_err <= 0.25 * plain_bf16_vs_fp32_max_abs",
+            "masked_alleles_zero": zeros_exact, "bit_equal_runs": bit_equal,
+            "launches_by_width": launched}
+    ok = (err <= 0.25 * bf16_vs_fp32 and zeros_exact and bit_equal
+          and launched == {1: 0, 2: 2} and bool(torch.isfinite(got).all()))
+    return got, line, ok, folded
+
+
+def wide_kernel_phase(width1_bf16, seed=0):
+    """The wide read convolver's kernel (width 2, bf16) with
+    ``illumina_wide``'s seeded weights, held to its plain version as the
+    bf16 route is (``_wide_leg``) in four legs: the kernel phase's
+    packed-row shape (C = 6, ``kernel_inputs``), timed by CUDA events (the
+    median of 20 launches) beside the width-1 bf16 route's ms
+    (``width1_bf16``: kernel_phase's line) and the layer route's at bf16 on
+    the same rows; the benchmark cell's batch (``cell_inputs``: 2,048
+    alleles of 20 to 60 reads) packed and as the dense grid, whose answers
+    must agree to the fp32 sums' order (each row's frame is the same bits
+    in either layout; a row lost or added between blocks would move its
+    allele by a whole frame); and the cell's batch packed at C = 7, with a
+    wide read convolver over 7 channels (seed + 1)."""
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn import archs
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.layers import build_network, set_precision
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import read_conv as rc
+
+    model = init_params(create_model("illumina_wide"),
+                        torch.Generator().manual_seed(seed)).cuda().eval()
+    net = model.read_convolver0
+    net7 = init_params(build_network(archs.read_convolver(
+        weight_norm=True, in_channels=7, width=2)),
+        torch.Generator().manual_seed(seed + 1)).cuda().eval()
+    rows, row_allele, row_valid, A, zero_alleles = kernel_inputs(
+        np.random.RandomState(seed), 6, "cuda")
+    packed, dense, cell_A = cell_inputs(np.random.RandomState(seed), 6,
+                                        "cuda")
+    packed7, _, _ = cell_inputs(np.random.RandomState(seed + 1), 7, "cuda")
+    legs = {}
+    for leg, (leg_net, inputs, leg_A, zeros) in {
+            "kernel_phase": (net, (rows, row_allele, row_valid), A,
+                             zero_alleles),
+            "cell_packed": (net, packed, cell_A, ()),
+            "cell_dense": (net, dense, cell_A, ()),
+            "cell_packed_c7": (net7, packed7, cell_A, ())}.items():
+        got, line, ok, folded = _wide_leg(leg_net, *inputs, leg_A, zeros)
+        line["leg"] = leg
+        if not ok:
+            raise AssertionError("read_conv_reduce's wide kernel disagrees "
+                                 f"with its plain version: {line}")
+        legs[leg] = (got, line, folded)
+    # the same reads packed and dense: the same frames, summed per allele
+    # in another order
+    a, b = legs["cell_packed"][0], legs["cell_dense"][0]
+    layouts = (a - b).abs().max().item() / a.abs().max().item()
+    legs["cell_dense"][1]["packed_vs_dense_max_over_max"] = layouts
+    if layouts > 2.0 ** -12:
+        raise AssertionError("the wide kernel's packed and dense answers of "
+                             f"the same reads differ by {layouts} of the "
+                             "largest (bar 2^-12)")
+    for leg in ("cell_packed", "cell_dense", "cell_packed_c7"):
+        emit(legs[leg][1])
+    _, line, folded = legs["kernel_phase"]
+    run = lambda: rc.read_conv_reduce(rows, row_allele, row_valid, folded, A)
+    ms = time_ms(run, 20)
+    plain_ms = time_ms(lambda: _plain(rows, row_allele, row_valid, folded,
+                                      A, False), 5)
+    batch = {"rows0": rows, "row_allele0": row_allele,
+             "row_valid0": row_valid,
+             # the wire's read bucket: the fixed-order sum's [A, R] grid
+             "read_mask0": torch.zeros((A, KERNEL_READS), device=rows.device)}
+    set_precision("bf16")
+    try:
+        with torch.inference_mode():
+            layer_ms = time_ms(lambda: model._read_reduce_layers(batch, 0), 3)
+    finally:
+        set_precision("highest")
+    flop = 2.0 * macs_per_row(6, width=2) * line["rows_computed"]
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    bound_ms = 1e3 * flop / peaks["bf16"]
+    line.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations", share_of_bound=bound_ms / ms,
+                gflop=flop / 1e9, tflop_per_s=flop / ms / 1e9,
+                width1_bf16_ms=width1_bf16["ms"], layer_route_bf16_ms=layer_ms,
+                launch=rc.kernel_info(6, "bf16", width=2))
+    emit(line)
+    return line
+
+
 def call_on_cpu(model_name, scorer, bams, fasta, out_cpu, regions=None):
     """The card's weights (and batch-norm statistics) on the CPU (plain
     read-convolver version, or the layer route, over packed rows), at the
@@ -945,6 +1123,8 @@ def main_path_phase(workdir):
           "read_conv_reduce_launches": launches, "stages": stages,
           "graph_counts": scorer.graph_counts,
           "replayed_launches_by_route": scorer.replayed_launches_by_route,
+          "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
+          "replayed_launches_by_width": scorer.replayed_launches_by_width,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1]})
@@ -1021,6 +1201,8 @@ def hybrid_path_phase(workdir):
           "read_conv_reduce_launches": launches, "stages": stages,
           "graph_counts": scorer.graph_counts,
           "replayed_launches_by_route": scorer.replayed_launches_by_route,
+          "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
+          "replayed_launches_by_width": scorer.replayed_launches_by_width,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1],
@@ -1028,7 +1210,7 @@ def hybrid_path_phase(workdir):
     return launches, ds
 
 
-def check_bf16(card, cpu_bf16, cpu_highest, what):
+def check_bf16(card, cpu_bf16, cpu_highest, what, median_bar=0.5):
     """Hold the card's bf16 records to the CPU's bf16 records of the same
     weights; returns (card against CPU, the CPU's bf16 against its highest).
 
@@ -1038,7 +1220,8 @@ def check_bf16(card, cpu_bf16, cpu_highest, what):
     allele: those sites sit as far apart as bf16 sits from fp32.  So the
     card and the CPU at bf16 must agree on every site and nearly every
     genotype, sit at most two bf16-from-fp32 distances apart at the worst
-    site, and at the median site at most half of one."""
+    site, and at the median site at most ``median_bar`` of one (half; the
+    wide kernel's is ``WIDE_KERNEL_MEDIAN_BAR``)."""
     import numpy as np
 
     from hello_tpu_torch.pipeline.precision_sweep import compare
@@ -1050,17 +1233,20 @@ def check_bf16(card, cpu_bf16, cpu_highest, what):
     gt_bar = 0.002 * len(card)
     if (site_flips or gt_flips > gt_bar or not len(dq)
             or dq.max() > 2 * dq_cpu.max()
-            or np.median(dq) > 0.5 * np.median(dq_cpu)):
+            or np.median(dq) > median_bar * np.median(dq_cpu)):
         raise AssertionError(
             f"{what}: card bf16 against CPU bf16: {site_flips} site flips, "
             f"{gt_flips} genotype flips (at most {gt_bar}), dQ max "
             f"{dq.max() if len(dq) else None} (at most 2 x "
             f"{dq_cpu.max() if len(dq_cpu) else None}), median "
-            f"{np.median(dq) if len(dq) else None} (at most 0.5 x "
+            f"{np.median(dq) if len(dq) else None} (at most {median_bar} x "
             f"{np.median(dq_cpu) if len(dq_cpu) else None})")
     return ({"site_flips": site_flips, "genotype_flips": gt_flips,
              "qual_delta_max": float(dq.max()),
              "qual_delta_median": float(np.median(dq)),
+             "qual_delta_median_over_cpu_bf16_vs_highest":
+                 float(np.median(dq) / np.median(dq_cpu)),
+             "median_bar": median_bar,
              "qual_delta_over_0.05": int((dq > 0.05).sum())},
             {"qual_delta_max": float(dq_cpu.max()),
              "qual_delta_median": float(np.median(dq_cpu)),
@@ -1118,9 +1304,12 @@ def parallel_path_phase(workdir):
             legs[precision] = {"records": read_vcf(out), "seconds": seconds,
                                "sites": stats["sites"],
                                "launches_by_route": by_route,
+                               "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
                                "graph_counts": dict(scorer.graph_counts),
                                "replayed_launches_by_route":
                                    dict(scorer.replayed_launches_by_route),
+                               "replayed_launches_by_width":
+                                   dict(scorer.replayed_launches_by_width),
                                "stages": {k: stats[k] for k in (
                                    "wait_s", "pack_s", "dispatch_s",
                                    "stage_backpressure_s", "backpressure_s",
@@ -1531,7 +1720,8 @@ def bench_read_conv_path_phase():
             raise AssertionError("bench_read_conv_path: the plain versions "
                                  "launched the kernel")
         legs[precision] = {"paths": result["paths"],
-                           "launches_by_route": by_route}
+                           "launches_by_route": by_route,
+                           "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)}
         peaks, size = result["peaks"], {"A": result["A"], "R": result["R"]}
         del result, rows
         torch.cuda.empty_cache()
@@ -1745,7 +1935,9 @@ def bench_path_phase(workdir):
     scorer = pipeline["scorer"]
     graph_use = {"graph_counts": dict(scorer.graph_counts),
                  "replayed_launches_by_route":
-                     dict(scorer.replayed_launches_by_route)}
+                     dict(scorer.replayed_launches_by_route),
+                 "replayed_launches_by_width":
+                     dict(scorer.replayed_launches_by_width)}
     set_precision("bf16")
     replay_trace = _replay_against_trace(scorer, workdir)
     ds = pipeline["dataset"]
@@ -2146,7 +2338,8 @@ def train_path_bf16_phase(batches, cpu_highest):
           "cpu_bf16_vs_highest_median_leaf_distance": grad_own,
           "card_highest_vs_cpu_bf16_median_leaf_distance": control,
           "card_bf16_vs_highest_median_leaf_distance": card_own,
-          "equal_parameters": equal, "launches_by_route": launches})
+          "equal_parameters": equal, "launches_by_route": launches,
+          "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)})
 
 
 # the soak in a process of its own, so that its RSS sampler measures the
@@ -2165,6 +2358,7 @@ if __name__ == "__main__":
     soak.main(sys.argv[1:])
     print(json.dumps({
         "launches_by_route": dict(rc.read_conv_reduce.launches_by_route),
+        "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
         "layer_route_calls": dict(moe.layer_route_calls),
         "max_memory_allocated": torch.cuda.max_memory_allocated()}))
 """
@@ -2239,6 +2433,7 @@ def soak_path_phase(workdir):
           "card_max_memory_allocated_mb":
               launched["max_memory_allocated"] / 1e6,
           "launches_by_route": by_route,
+          "launches_by_width": launched.get("launches_by_width"),
           "layer_route_calls": launched["layer_route_calls"],
           "accuracy": result["accuracy"], "min_accuracy": SOAK_MIN_ACCURACY})
     return by_route["bf16"]
@@ -2592,7 +2787,8 @@ def trace_path_phase(workdir, ds, card):
     emit({"phase": "trace_path", "model": "illumina", "seconds": seconds,
           "trace_mb": os.path.getsize(traces[0]) / 1e6,
           "summary_seconds": time.perf_counter() - t0,
-          "launches_by_route": by_route, "records_equal_main_path": True,
+          "launches_by_route": by_route, "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
+          "records_equal_main_path": True,
           "max_qual_diff": worst[0], "trace": summary,
           "pcie_before": before, "pcie_after": after})
     return by_route["tf32x3"]
@@ -2624,7 +2820,7 @@ def dryrun_phase():
           "entry_meta": list(meta.shape),
           "entry_max_abs_logit": float(np.abs(experts.cpu().numpy()).max()),
           "dryrun_multichip": out, "seconds": time.perf_counter() - t0,
-          "launches_by_route": by_route})
+          "launches_by_route": by_route, "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)})
     return by_route["tf32x3"]
 
 
@@ -2689,7 +2885,8 @@ def layer_route_ms(kernel_line):
         np.random.RandomState(0), 6, "cuda")
     batch = {"rows0": rows, "row_allele0": row_allele,
              "row_valid0": row_valid,
-             "read_mask0": torch.zeros((A, 1), device=rows.device)}
+             # the wire's read bucket: the fixed-order sum's [A, R] grid
+             "read_mask0": torch.zeros((A, KERNEL_READS), device=rows.device)}
     computed = int(((row_valid != 0) & (row_allele < A)).sum().item())
     peaks = card_peaks(torch.cuda.get_device_name(0))
     out = {}
@@ -2777,19 +2974,34 @@ def bf16_layers_card_vs_cpu(name, card_model, ds):
     return worst
 
 
+#: check_bf16's median bar for the wide kernel's records: its median site
+#: sits 0.51 to 0.59 of the CPU's bf16-from-highest distance from the CPU's
+#: bf16 records over four weight and genome seeds, the card's layer route
+#: 0.34 to 0.48, and planted faults of the kernel 0.90 to 1.13 (the residual
+#: branch's rounding skipped) and 1.22 to 3.84 (bf16 rounding that
+#: truncates) (an H100 SXM, configs_path's genome): the wide kernel's
+#: tensor-core sums, up to 384 products long, round more sums to other bf16
+#: values than cuDNN's fp32 convs do, while its records lie as far from the
+#: CPU's highest as the CPU's bf16 ones
+WIDE_KERNEL_MEDIAN_BAR = 0.75
+
+
 def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
     """The five variant configs at full width with seeded weights, on the
     layer route (no kernel launch), called on the card and on the CPU at
     highest and held as main_path holds them; illumina_wide and
-    illumina_layer_norm also at bf16, held as parallel_path holds bf16;
-    then the layer route's read-convolver ms at the kernel phase's shape."""
+    illumina_layer_norm also at bf16 on the layer route (illumina_wide's
+    pinned: its own fold takes the wide kernel there), held as
+    parallel_path holds bf16; illumina_wide then on its wide kernel (width-2
+    launches only, no layer-route call), held by check_bf16 at
+    WIDE_KERNEL_MEDIAN_BAR; then the layer route's read-convolver ms at the kernel phase's shape."""
     import torch
 
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn import moe
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.ops import read_conv as rc
-    from hello_tpu_torch.pipeline.call import call_genome, load_scorer
+    from hello_tpu_torch.pipeline.call import Scorer, call_genome, load_scorer
 
     os.makedirs(workdir)
     t_phase = time.perf_counter()
@@ -2808,16 +3020,28 @@ def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
             where = ("parallel_path's" if name in CONFIGS_BF16
                      else "main_path's") + ", whole"
         line = {"genome": where}
-        cpu_highest = None
-        for precision in (("highest", "bf16") if name in CONFIGS_BF16
-                          else ("highest",)):
+        cpu_highest = cpu_bf16 = None
+        legs = ("highest",)
+        if name in CONFIGS_BF16:
+            legs += ("bf16", "bf16_kernel") if name.endswith("_wide") \
+                else ("bf16",)
+        for leg_name in legs:
+            wide_kernel = leg_name == "bf16_kernel"
+            precision = "bf16" if wide_kernel else leg_name
             set_precision(precision)
             scorer = load_scorer(name, seed=0)              # cuda
+            if precision == "bf16" and not wide_kernel:
+                # the layer route, pinned
+                scorer.model.fold_read_convs = lambda model=scorer.model: {
+                    k: moe.LayerRoute() for k in ("read_conv0", "read_conv1")
+                    if model.net(k) is not None}
+                scorer = Scorer(scorer.model, devices=scorer.devices)
             routes = scorer.read_conv_routes()
-            if set(routes.values()) != {"layers"} or \
+            if set(routes.values()) != ({"bf16"} if wide_kernel
+                                        else {"layers"}) or \
                     len(routes) != (2 if hybrid else 1):
                 raise AssertionError(f"{name}: read convolver routes {routes}")
-            out_card = os.path.join(workdir, f"{name}_{precision}_card.vcf")
+            out_card = os.path.join(workdir, f"{name}_{leg_name}_card.vcf")
             stats = {}
             rc.reset_launches()
             moe.reset_layer_route_calls()
@@ -2827,20 +3051,26 @@ def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
             torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
             calls = dict(moe.layer_route_calls)
-            if rc.read_conv_reduce.launches or \
-                    min(calls[k] for k in routes) <= 0:
+            by_width = dict(rc.read_conv_reduce.launches_by_width)
+            if (by_width[2] <= 0 or by_width[1] or any(calls.values())
+                    if wide_kernel else rc.read_conv_reduce.launches
+                    or min(calls[k] for k in routes) <= 0):
                 raise AssertionError(
-                    f"{name} at {precision}: read_conv_reduce launched "
-                    f"{rc.read_conv_reduce.launches_by_route}, layer route "
-                    f"calls {calls}")
+                    f"{name} at {leg_name}: read_conv_reduce launched "
+                    f"{rc.read_conv_reduce.launches_by_route} (by width "
+                    f"{by_width}), layer route calls {calls}")
             card = read_vcf(out_card)
-            cpu, cpu_s = call_on_cpu(
-                name, scorer, bams, fasta,
-                os.path.join(workdir, f"{name}_{precision}_cpu.vcf"), regions)
             leg = {"sites": stats["sites"], "records": len(card),
                    "seconds": card_s,
                    "windows_per_s": stats["sites"] / card_s,
-                   "layer_route_calls": calls, "cpu_seconds": cpu_s}
+                   "layer_route_calls": calls, "launches_by_width": by_width}
+            if not wide_kernel:
+                # the CPU's records of the same weights (at bf16 the plain
+                # version's, for both bf16 legs)
+                cpu, leg["cpu_seconds"] = call_on_cpu(
+                    name, scorer, bams, fasta,
+                    os.path.join(workdir, f"{name}_{precision}_cpu.vcf"),
+                    regions)
             if precision == "highest":
                 # seeded weights give some of these configs confident calls
                 # (Q50 and up), where 1 - p moves by the decode's resolution
@@ -2850,12 +3080,18 @@ def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
                 leg.update(records_equal=True, max_qual_diff=worst[0],
                            qual_at_max_diff=worst[1],
                            quals_within_one_decode_step=len(decode_steps))
-            else:
+            elif not wide_kernel:
+                cpu_bf16 = cpu
                 leg["layers_card_vs_cpu"] = bf16_layers_card_vs_cpu(
                     name, scorer.model, genome)
                 leg["card_vs_cpu_bf16"], leg["cpu_bf16_vs_cpu_highest"] = \
                     check_bf16(card, cpu, cpu_highest, f"{name} bf16")
-            line[precision] = leg
+            else:
+                leg["card_vs_cpu_bf16"], leg["cpu_bf16_vs_cpu_highest"] = \
+                    check_bf16(card, cpu_bf16, cpu_highest,
+                               f"{name} bf16, wide kernel",
+                               median_bar=WIDE_KERNEL_MEDIAN_BAR)
+            line[leg_name] = leg
         set_precision("highest")
         lines[name] = line
     layer_ms = layer_route_ms(kernel_line)
@@ -2928,6 +3164,7 @@ def wrapper_path_phase(workdir, ds, card):
         total += by_route["tf32x3"]
         legs[kind] = {"file_mb": os.path.getsize(path) / 1e6,
                       "seconds": seconds, "launches_by_route": by_route,
+                      "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
                       "records_equal_main_path": True,
                       "max_qual_diff": worst[0],
                       "quals_within_one_decode_step": len(decode_steps)}
@@ -3092,7 +3329,7 @@ def demo_path_phase(workdir):
         raise AssertionError(f"demo: exit {rc_}, {summary}, launches "
                              f"{by_route}")
     emit({"phase": "demo_path", "seconds": seconds, "metrics": metrics,
-          "launches_by_route": by_route})
+          "launches_by_route": by_route, "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)})
     return by_route["tf32x3"]
 
 
@@ -3114,6 +3351,7 @@ def main():
     rates = probe_phase(build_phase())
     lines = [kernel_phase("illumina", 6, seed=0, rates=rates),
              kernel_phase("pacbio_hp", 7, seed=1, rates=rates)]
+    wide_kernel_phase(lines[0]["bf16"])
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as workdir:
         launches, ds, card = main_path_phase(os.path.join(workdir, "illumina"))
         hybrid, hybrid_ds = hybrid_path_phase(os.path.join(workdir, "hybrid"))

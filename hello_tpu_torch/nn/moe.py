@@ -33,18 +33,22 @@ Hybrid batches add ``reads1`` / ``read_mask1`` (dense) or ``rows1`` /
 ``row_allele1`` / ``row_valid1`` (packed); read_conv1 reduces them through
 the same kernel with its own folded weights.
 
-A read convolver the kernel does not implement (the wide, addendum and
-layer_norm configs: ``ops.read_conv.supports_read_convolver`` is false) takes
+The wide read convolver (the wide configs) has a kernel of its own at
+``bf16`` (``FoldedReadConv.width == 2``).  A read convolver no kernel
+implements in the route of the precision in force (the addendum and
+layer_norm configs, and the wide ones at ``highest``, ``high`` and
+``default``: ``ops.read_conv.supports_read_convolver`` is false) takes
 the *layer route* in eval mode: its layer modules under ``torch.no_grad()``,
 then the per-allele sum, as hello_tpu sends the networks its Pallas kernel
 does not implement to its XLA layers.  The route is decided once per fold,
-by topology alone (``fold_read_convs``), never because a kernel failed.
-Over packed rows its sum runs in a fixed order (``ordered_read_reduce``),
-so two runs of one batch give the same bits on the card, where
-``index_add_``'s atomics would not.  ``layer_route_calls`` and
-``layer_route_rows`` count its calls and the rows they computed; given a
-``stamps`` tensor on the card, ``forward`` brackets each layer-route read
-convolver with two stamps of the card's clock (``ops.card_stamp``).
+by the topology and the precision (``fold_read_convs``), never because a
+kernel failed.  Over packed rows its sum runs in a fixed order
+(``ordered_read_reduce``), so two runs of one batch give the same bits on
+the card, where ``index_add_``'s atomics would not.  ``layer_route_calls``
+and ``layer_route_rows`` count its calls and the rows they computed; given
+a ``stamps`` tensor on the card, ``forward`` brackets each read convolver
+that the width-1 kernel does not implement (``stamped``), on either route,
+with two stamps of the card's clock (``ops.card_stamp``).
 
 In train mode (``model.train()``) the read convolvers run through their
 layer modules under autograd instead, as hello_tpu's train-mode forward
@@ -88,10 +92,18 @@ def reset_layer_route_calls():
 
 
 class LayerRoute:
-    """``fold_read_convs``' marker for a read convolver the kernel does not
-    implement: its layer modules run under ``torch.no_grad()`` in eval
-    mode (``layer_route_calls`` counts them)."""
+    """``fold_read_convs``' marker for a read convolver no kernel
+    implements in the precision's route: its layer modules run under
+    ``torch.no_grad()`` in eval mode (``layer_route_calls`` counts them)."""
     route = "layers"
+
+
+def stamped(route) -> bool:
+    """Whether a read convolver of this fold (``FoldedReadConv`` or
+    ``LayerRoute``) gets the card's stamps: every one the width-1 kernel
+    does not implement, whichever route runs it (the layer route, or the
+    wide kernel)."""
+    return isinstance(route, LayerRoute) or route.width != 1
 
 
 def packed_read_reduce(frames, row_allele, row_valid, num_alleles):
@@ -185,9 +197,10 @@ class MoEAttention(nn.Module):
 
     def fold_read_convs(self):
         """Each read convolver's route for the precision in force, decided
-        by its topology alone: the kernel's folded weights
-        (``FoldedReadConv``) for the read convolver the kernel implements,
-        a ``LayerRoute`` for any other.  Compute once per parameter set and
+        by its topology and that precision's kernel route: the kernel's
+        folded weights (``FoldedReadConv``, width 1 or 2) for a read
+        convolver a kernel implements there, a ``LayerRoute`` for any
+        other.  Compute once per parameter set and
         precision and pass to ``forward``."""
         return {name: (fold_read_conv_weights(net)
                        if supports_read_convolver(net) else LayerRoute())
@@ -251,25 +264,32 @@ class MoEAttention(nn.Module):
 
     def _read_reduce(self, batch, k, folded, stamps=None):
         """Platform k's reads -> per-allele sum of read-convolver frames
-        [A, 36, 64], packed rows or the dense grid flattened to rows.  On
-        the layer route, ``stamps`` (int64 [read convolvers, 2] on the card,
+        [A, 36, 64 * width], packed rows or the dense grid flattened to
+        rows.  For a read convolver the width-1 kernel does not implement
+        (``stamped``), ``stamps`` (int64 [read convolvers, 2] on the card,
         or None) gets the card's clock before and after in row k."""
         if self.training:
             return self._read_reduce_layers(batch, k)
         route = folded[f"read_conv{k}"]
+        stamp = stamps is not None and stamped(route)
+        if stamp:
+            card_stamp(stamps[k, 0])
+        out = self._read_reduce_route(batch, k, route)
+        if stamp:
+            card_stamp(stamps[k, 1])
+        return out
+
+    def _read_reduce_route(self, batch, k, route):
+        """``_read_reduce`` in eval mode on the fold's route: the layer
+        route, or ``read_conv_reduce`` with the folded weights."""
         if isinstance(route, LayerRoute):
             name = f"read_conv{k}"
             layer_route_calls[name] += 1
             layer_route_rows[name] += (
                 batch[f"rows{k}"].shape[0] if f"rows{k}" in batch
                 else batch[f"reads{k}"].shape[0] * batch[f"reads{k}"].shape[1])
-            if stamps is not None:
-                card_stamp(stamps[k, 0])
             with torch.no_grad():
-                out = self._read_reduce_layers(batch, k)
-            if stamps is not None:
-                card_stamp(stamps[k, 1])
-            return out
+                return self._read_reduce_layers(batch, k)
         if f"rows{k}" in batch:
             A = batch[f"read_mask{k}"].shape[0]
             rows = batch[f"rows{k}"]
@@ -283,8 +303,7 @@ class MoEAttention(nn.Module):
                 torch.arange(A * R, dtype=torch.int32, device=reads.device),
                 R, rounding_mode="floor")
             row_valid = batch[f"read_mask{k}"].reshape(-1).float()
-        return read_conv_reduce(rows, row_allele, row_valid,
-                                folded[f"read_conv{k}"], A)
+        return read_conv_reduce(rows, row_allele, row_valid, route, A)
 
     def forward(self, batch, folded=None, stamps=None):
         """Forward -> {"experts": [A, E] raw logits, "meta": [S, 3] softmax
@@ -292,7 +311,8 @@ class MoEAttention(nn.Module):
         (experts 0, 1, 2; zeros for expert 2 when the config has none).
         ``stamps`` (eval mode on the card: int64 [read convolvers, 2]) gets,
         in row k, the card's clock before and after read convolver k where
-        it takes the layer route; its other rows are left as they are.
+        the width-1 kernel does not implement it (``stamped``); its other
+        rows are left as they are.
 
         Eval mode reduces the reads through ``read_conv_reduce`` with the
         folded weights, or through the layer route (``folded``:

@@ -9,9 +9,12 @@
 //   kBF16 (bf16): read_conv_wgmma.cuh, wgmma m64nNk16 products from bf16
 //       shared-memory tiles, activations rounded to bf16 where the Pallas
 //       kernel's bf16 compute_dtype rounds them.
-// Both kernels stream their weights by bulk copies on mbarriers
+// The wide read convolver (every channel count doubled) has a kernel of its
+// own, at bf16 only: read_conv_wgmma_wide.cuh, launched by
+// read_conv_reduce_wide_run.
+// The kernels stream their weights by bulk copies on mbarriers
 // (wgmma_ptx.cuh holds the PTX helpers they share).  This file holds the C
-// interface of the three routes.
+// interface of the routes.
 //
 // Replaces the two Pallas TPU kernels of hello_tpu/ops/read_conv.py and the
 // masked reduction they end in:
@@ -39,6 +42,7 @@
 
 #include "read_conv_wgmma.cuh"
 #include "read_conv_wgmma_tf32.cuh"
+#include "read_conv_wgmma_wide.cuh"
 
 namespace {
 
@@ -75,6 +79,24 @@ cudaError_t launch_bf16(const void* rows, int nb, const void* row_allele,
   if (err != cudaSuccess) return err;
   rcw::read_conv_reduce_wgmma<C>
       <<<cdiv(nb, rcw::kRows), rcw::kThreads, rcw::kSmemBytes, stream>>>(
+          static_cast<const uint8_t*>(rows), nb,
+          static_cast<const int32_t*>(row_allele),
+          static_cast<const float*>(row_valid),
+          static_cast<const uint8_t*>(weights), num_alleles,
+          static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_wide(const void* rows, int nb, const void* row_allele,
+                        const void* row_valid, const void* weights,
+                        int num_alleles, void* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rcw2::read_conv_reduce_wide<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rcw2::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  rcw2::read_conv_reduce_wide<C>
+      <<<cdiv(nb, rcw2::kSpan), rcw2::kThreads, rcw2::kSmemBytes, stream>>>(
           static_cast<const uint8_t*>(rows), nb,
           static_cast<const int32_t*>(row_allele),
           static_cast<const float*>(row_valid),
@@ -141,6 +163,43 @@ extern "C" int read_conv_reduce_info(int channels, int route,
   *rows_per_block = bf16 ? rcw::kRows : rct::kRows;
   *smem_bytes = bf16 ? rcw::kSmemBytes : rct::kSmemBytes;
   *threads = bf16 ? rcw::kThreads : rct::kThreads;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, *threads, *smem_bytes));
+}
+
+// The wide read convolver's kernel (bf16, the fold's bf16 layout at twice
+// the width) on `stream`: out [A, 36, 128] fp32, zero-filled by the caller,
+// gets each allele's sum.  Returns the cudaError_t of the shared-memory
+// opt-in or of the launch (0 on success).
+extern "C" int read_conv_reduce_wide_run(const void* rows, int nb, int channels,
+                                         const void* row_allele,
+                                         const void* row_valid,
+                                         const void* weights, int num_alleles,
+                                         void* out, void* stream) {
+  if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      channels == 6
+          ? launch_wide<6>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s)
+          : launch_wide<7>(rows, nb, row_allele, row_valid, weights, num_alleles, out, s));
+}
+
+// The wide kernel's launch shape on this device, as read_conv_reduce_info's;
+// rows_per_block is the rows a group computes at once.
+extern "C" int read_conv_reduce_wide_info(int channels, int* rows_per_block,
+                                          int* smem_bytes, int* threads,
+                                          int* blocks_per_sm) {
+  if (channels != 6 && channels != 7) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = channels == 6
+                           ? reinterpret_cast<const void*>(&rcw2::read_conv_reduce_wide<6>)
+                           : reinterpret_cast<const void*>(&rcw2::read_conv_reduce_wide<7>);
+  *rows_per_block = rcw2::kRows;
+  *smem_bytes = rcw2::kSmemBytes;
+  *threads = rcw2::kThreads;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -29,6 +29,14 @@ when the weights are folded:
     ``compute_dtype`` rounds them: each conv's biased fp32 sum once, and
     each residual add's sum again.
 
+The wide read convolver (HELLO's ``read_convolver_wide``: the same
+topology with every channel count doubled, out ``[A, 36, 128]``) has a
+kernel of its own at ``bf16`` (``csrc/read_conv_wgmma_wide.cuh``, the same
+fold and weight layout at twice the width, and a per-allele sum in a fixed
+order); at the other precisions it has no route, and the model runs it
+through its layers.  ``FoldedReadConv.width`` says which kernel a fold
+is for.
+
 ``read_conv_reduce_reference`` is the plain PyTorch version of the same
 function and route (``F.conv1d`` / ``F.max_pool1d`` chain + ``index_add_``,
 with the bf16 route's rounding points).  The wrapper takes it only for
@@ -42,10 +50,10 @@ becomes ``W[Co, K*Ci]`` (k-major, as hello_tpu's
 ``b[Co]``.  The kernel reads one flat buffer holding, per conv, ``W`` in the
 route's layout (``pack_conv``: the wgmma B operand's shared-memory image,
 in units of one tap for the TF32 routes), then ``b``.  The topology
-gate (``check_read_convolver``) raises for a read convolver the kernel does
-not implement; ``supports_read_convolver`` asks the same question without
-raising, as hello_tpu's ``supports_network``, and the model runs such a
-read convolver through its layers (nn/moe.py, the layer route).
+gate (``check_read_convolver``) raises for a read convolver no kernel
+implements in the route; ``supports_read_convolver`` asks the same question
+without raising, as hello_tpu's ``supports_network``, and the model runs
+such a read convolver through its layers (nn/moe.py, the layer route).
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ from ..nn import layers as L
 # architecture constants (read_convolver for feature_length=150)
 L_IN = 150
 L_OUT = 36     # after the stride-2 residual block
-C_OUT = 64
+C_OUT = 64     # at width 1; the wide read convolver's is 128
 NUM_CONVS = 18
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -77,18 +85,20 @@ BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
-#: ROADMAP item of the kernel variants for the read convolvers the kernel
-#: does not implement (the wide, addendum and layer_norm configs take the
+#: ROADMAP item of the kernel variants still missing (the addendum and
+#: layer_norm read convolvers, and the wide one's TF32 routes, take the
 #: layer route until then)
-ROADMAP_VARIANTS = ("ROADMAP.md Queue 1 item 14: kernel variants of "
-                    "read_conv_reduce for the wide, addendum and layer_norm "
-                    "configs")
+ROADMAP_VARIANTS = ("ROADMAP.md item 14: kernel variants of read_conv_reduce "
+                    "for the addendum and layer_norm read convolvers, and "
+                    "TF32 routes for the wide one")
 
 #: kernel route of each precision (nn/layers.PRECISIONS), and the route's
 #: number in the kernel's C interface
 ROUTES = {"highest": "tf32x3", "high": "tf32x3", "default": "tf32",
           "bf16": "bf16"}
 ROUTE_IDS = {"tf32x3": 0, "tf32": 1, "bf16": 2}
+#: the widths of read convolver a kernel implements, and each one's routes
+WIDTH_ROUTES = {1: tuple(ROUTE_IDS), 2: ("bf16",)}
 
 
 def route_for_precision(precision: str) -> str:
@@ -111,6 +121,13 @@ _EXPECTED_TAIL_SHAPES = [
 _EXPECTED_GEOMETRY = ([(1, 0, 1, 1)] * 3 + [(1, 1, 1, 1)] * 6
                       + [(2, 1, 1, 1), (1, 1, 1, 1), (2, 0, 1, 1)]
                       + [(1, 1, 1, 1)] * 6)
+
+
+def conv_shapes(in_channels: int, width: int = 1) -> List[Tuple[int, int]]:
+    """(C_out, K*C_in) of the 18 convs of a read convolver of ``width``
+    (every channel count times ``width``; the first conv's K*C_in is 3 C)."""
+    return [(16 * width, 3 * in_channels)] + [
+        (co * width, kc * width) for co, kc in _EXPECTED_TAIL_SHAPES]
 
 
 # ---------------------------------------------------------------------------
@@ -166,21 +183,43 @@ def _topology_matches(seq) -> bool:
     return ok_layers(seq.network)
 
 
-def check_read_convolver(seq: L.Sequential):
-    """Raise ValueError unless ``seq`` is the standard width-1 weight-normed
-    read_convolver the kernel implements (wide, addendum, layer-norm and
-    batch-norm variants are refused, never routed around the kernel)."""
+def _width(shapes) -> Optional[int]:
+    """The width (1 or 2) whose conv shapes ``shapes`` are, or None."""
+    for width in WIDTH_ROUTES:
+        if any(shapes == conv_shapes(c, width) for c in (6, 7)):
+            return width
+    return None
+
+
+def read_convolver_width(seq: L.Sequential) -> Optional[int]:
+    """The width (1 or 2) whose conv shapes ``seq``'s convs have, or None."""
+    return _width([tuple(w.shape)
+                   for w in extract_read_conv_weights(seq)[0::2]])
+
+
+def check_read_convolver(seq: L.Sequential, route: Optional[str] = None):
+    """Raise ValueError unless a kernel implements ``seq`` in ``route``
+    (default: the route of the precision in force): the standard
+    weight-normed read_convolver in every route, its wide variant (every
+    channel count doubled) in ``bf16``.  The addendum, layer-norm and
+    batch-norm variants, and the wide one in a TF32 route, are refused,
+    never routed around the kernel."""
+    route = route_for_precision(L.PRECISION) if route is None else route
     if not _topology_matches(seq):
         raise ValueError("read convolver has layers the CUDA kernel does not "
                          "implement (only WeightNormedConv1d/ReLU/MaxPool1d; "
                          f"{ROADMAP_VARIANTS})")
     ws = extract_read_conv_weights(seq)
-    shapes = [tuple(m.shape) for m in ws[0::2]]
-    if (len(shapes) != NUM_CONVS or shapes[0] not in ((16, 18), (16, 21))
-            or shapes[1:] != _EXPECTED_TAIL_SHAPES):
-        raise ValueError(f"read convolver conv shapes {shapes} are not the "
-                         "width-1 topology the CUDA kernel implements "
-                         f"({ROADMAP_VARIANTS})")
+    shapes = [tuple(w.shape) for w in ws[0::2]]
+    width = _width(shapes)
+    if width is None:
+        raise ValueError(f"read convolver conv shapes {shapes} are neither "
+                         "the width-1 nor the width-2 topology the CUDA "
+                         f"kernels implement ({ROADMAP_VARIANTS})")
+    if route not in WIDTH_ROUTES[width]:
+        raise ValueError(f"the width-{width} read convolver has no kernel "
+                         f"route {route!r} (it has {WIDTH_ROUTES[width]}; "
+                         f"{ROADMAP_VARIANTS})")
     bias_free = [i for i, b in enumerate(ws[1::2]) if b is None]
     if bias_free:
         raise ValueError(f"convs {bias_free} have no bias; the kernel needs one")
@@ -194,12 +233,14 @@ def check_read_convolver(seq: L.Sequential):
                          f"({ROADMAP_VARIANTS})")
 
 
-def supports_read_convolver(seq: L.Sequential) -> bool:
-    """Whether ``seq`` is the read convolver the kernel implements:
-    ``check_read_convolver`` without raising (hello_tpu's
-    ``supports_network``).  Decided by topology alone."""
+def supports_read_convolver(seq: L.Sequential,
+                            route: Optional[str] = None) -> bool:
+    """Whether a kernel implements ``seq`` in ``route`` (default: the route
+    of the precision in force): ``check_read_convolver`` without raising
+    (hello_tpu's ``supports_network``).  Decided by the topology and the
+    route alone."""
     try:
-        check_read_convolver(seq)
+        check_read_convolver(seq, route)
     except ValueError:
         return False
     return True
@@ -210,14 +251,16 @@ class FoldedReadConv:
     """Folded read-convolver weights for one kernel route: ``convs`` holds
     the 18 ``(W [Co, K*Ci], b [Co])`` pairs (``W`` bf16-valued for the bf16
     route); ``flat`` is the kernel's buffer (per conv the ``pack_conv``
-    images, then ``b``, concatenated).  ``launches`` counts the kernel's
-    launches with these weights (one read convolver's share of
+    images, then ``b``, concatenated).  ``width`` is the read convolver's
+    (1, or 2 for the wide one and its kernel).  ``launches`` counts the
+    kernel's launches with these weights (one read convolver's share of
     ``read_conv_reduce.launches``)."""
     convs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     flat: torch.Tensor
     in_channels: int
     route: str = "tf32x3"
     launches: int = 0
+    width: int = 1
 
 
 def k_step(route: str) -> int:
@@ -279,11 +322,12 @@ def fragment_floats(co: int, kc: int, route: str = "tf32x3") -> int:
     return {"tf32x3": 2 * co * kp, "tf32": co * kp, "bf16": co * kp // 2}[route]
 
 
-def num_weight_floats(in_channels: int, route: str = "tf32x3") -> int:
-    """32-bit words of the kernel's buffer for a route: per conv, the
-    weights' images and the bias."""
-    shapes = [(16, 3 * in_channels)] + _EXPECTED_TAIL_SHAPES
-    return sum(fragment_floats(co, kc, route) + co for co, kc in shapes)
+def num_weight_floats(in_channels: int, route: str = "tf32x3",
+                      width: int = 1) -> int:
+    """32-bit words of the kernel's buffer for a route and width: per conv,
+    the weights' images and the bias."""
+    return sum(fragment_floats(co, kc, route) + co
+               for co, kc in conv_shapes(in_channels, width))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -346,10 +390,10 @@ def fold_read_conv_weights(seq: L.Sequential,
     (default: the route of the precision in force, ``nn.layers.PRECISION``).
     Once per parameter set: the Scorer calls this at construction, not per
     batch."""
-    check_read_convolver(seq)
     route = route_for_precision(L.PRECISION) if route is None else route
     if route not in ROUTE_IDS:
         raise ValueError(f"unknown read-conv kernel route {route!r}")
+    check_read_convolver(seq, route)
     ws = [t.detach().float() for t in extract_read_conv_weights(seq)]
     convs = tuple(zip(ws[0::2], ws[1::2]))
     if route == "bf16":
@@ -357,7 +401,7 @@ def fold_read_conv_weights(seq: L.Sequential,
     flat = torch.cat([t for w, b in convs
                       for t in (pack_conv(w, route), b)]).contiguous()
     return FoldedReadConv(convs, flat, in_channels=convs[0][0].shape[1] // 3,
-                          route=route)
+                          route=route, width=read_convolver_width(seq))
 
 
 # ---------------------------------------------------------------------------
@@ -373,12 +417,12 @@ def _conv(x, w, b, stride=1, padding=0, conv=F.conv1d):
 
 def read_convolver_reference(rows: torch.Tensor,
                              folded: FoldedReadConv) -> torch.Tensor:
-    """[nb, 150, C] -> per-row frames [nb, 36, 64] (NWC) with the folded
-    weights, as F.conv1d / F.max_pool1d calls.  The bf16 route rounds where
-    the Pallas kernel's bf16 ``compute_dtype`` does: each conv's biased fp32
-    sum once (on bf16-valued input and weights, so every product is exact),
-    each residual add's sum again; ReLU and max-pool act on bf16 values and
-    the frames come out bf16-valued, in fp32."""
+    """[nb, 150, C] -> per-row frames [nb, 36, 64 * width] (NWC) with the
+    folded weights, as F.conv1d / F.max_pool1d calls.  The bf16 route
+    rounds where the Pallas kernel's bf16 ``compute_dtype`` does: each
+    conv's biased fp32 sum once (on bf16-valued input and weights, so every
+    product is exact), each residual add's sum again; ReLU and max-pool act
+    on bf16 values and the frames come out bf16-valued, in fp32."""
     convs = iter(folded.convs)
     if folded.route == "bf16":
         r = bf16_round
@@ -494,16 +538,31 @@ def _library():
             lib.read_conv_reduce_info.argtypes = [
                 ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
             lib.read_conv_reduce_info.restype = ctypes.c_int
+            lib.read_conv_reduce_wide_run.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            lib.read_conv_reduce_wide_run.restype = ctypes.c_int
+            lib.read_conv_reduce_wide_info.argtypes = [
+                ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+            lib.read_conv_reduce_wide_info.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def kernel_info(channels: int, route: str = "tf32x3") -> dict:
-    """A route's launch shape on the current card: read rows per block,
-    dynamic shared memory and threads per block, resident blocks per SM."""
+def kernel_info(channels: int, route: str = "tf32x3", width: int = 1) -> dict:
+    """A route's launch shape on the current card: read rows per block (of
+    the wide kernel: per group of rows computed at once), dynamic shared
+    memory and threads per block, resident blocks per SM."""
     vals = [ctypes.c_int(0) for _ in range(4)]
-    err = _library().read_conv_reduce_info(
-        channels, ROUTE_IDS[route], *(ctypes.byref(v) for v in vals))
+    if width == 2 and route in WIDTH_ROUTES[2]:
+        err = _library().read_conv_reduce_wide_info(
+            channels, *(ctypes.byref(v) for v in vals))
+    elif width == 1:
+        err = _library().read_conv_reduce_info(
+            channels, ROUTE_IDS[route], *(ctypes.byref(v) for v in vals))
+    else:
+        raise ValueError(f"no width-{width} kernel in route {route!r}")
     if err != 0:
         raise RuntimeError(f"read_conv_reduce_info failed: cudaError {err}")
     keys = ("rows_per_block", "smem_bytes", "threads", "blocks_per_sm")
@@ -525,11 +584,13 @@ def _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles):
         raise TypeError(f"row_valid must be float32 [{nb}], got "
                         f"{row_valid.dtype} {tuple(row_valid.shape)}")
     flat = folded.flat
-    if folded.route not in ROUTE_IDS:
-        raise ValueError(f"unknown read-conv kernel route {folded.route!r}")
+    if folded.route not in WIDTH_ROUTES.get(folded.width, ()):
+        raise ValueError(f"no width-{folded.width} read-conv kernel in route "
+                         f"{folded.route!r}")
     if folded.in_channels != rows.shape[2] or flat.dtype != torch.float32 \
             or flat.dim() != 1 \
-            or flat.numel() != num_weight_floats(rows.shape[2], folded.route):
+            or flat.numel() != num_weight_floats(rows.shape[2], folded.route,
+                                                 folded.width):
         raise ValueError("folded weights do not match the rows' channel "
                          "count or their route's layout")
     if flat.data_ptr() % 16:
@@ -549,14 +610,20 @@ def _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles):
 def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
                      row_valid: torch.Tensor, folded: FoldedReadConv,
                      num_alleles: int) -> torch.Tensor:
-    """Fused read convolver + per-allele sum -> [A, 36, 64] float32 (NWC),
-    in the route the weights were folded for (``folded.route``).
+    """Fused read convolver + per-allele sum -> [A, 36, 64 * width] float32
+    (NWC), in the route and width the weights were folded for
+    (``folded.route``, ``folded.width``).
 
     rows: uint8 [nb, 150, C]; row_allele: int32 [nb] (``A`` marks a padding
     row, dropped); row_valid: float32 [nb].  CUDA tensors launch the route's
-    kernel on the current stream (``read_conv_reduce.launches``, the
-    per-route ``read_conv_reduce.launches_by_route`` and ``folded.launches``
-    count launches); CPU tensors take ``read_conv_reduce_reference``."""
+    kernel of the fold's width on the current stream
+    (``read_conv_reduce.launches``, the per-route
+    ``read_conv_reduce.launches_by_route``, the per-width
+    ``read_conv_reduce.launches_by_width`` and ``folded.launches`` count
+    launches); CPU tensors take ``read_conv_reduce_reference``.  The wide
+    kernel sums each allele's rows in row order, one addition into each
+    output value where the allele's rows are consecutive: the same bits on
+    every run."""
     if rows.device.type == "cpu":
         return read_conv_reduce_reference(rows, row_allele, row_valid,
                                           folded, num_alleles)
@@ -564,22 +631,29 @@ def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
         raise ValueError(f"read_conv_reduce runs on cuda or cpu, not "
                          f"{rows.device}")
     _check_cuda_args(rows, row_allele, row_valid, folded, num_alleles)
-    out = torch.zeros((num_alleles, L_OUT, C_OUT), dtype=torch.float32,
-                      device=rows.device)
+    out = torch.zeros((num_alleles, L_OUT, C_OUT * folded.width),
+                      dtype=torch.float32, device=rows.device)
     nb = rows.shape[0]
     if nb == 0:
         return out
     lib = _library()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.read_conv_reduce_run(
-            rows.data_ptr(), nb, rows.shape[2], ROUTE_IDS[folded.route],
-            row_allele.data_ptr(), row_valid.data_ptr(),
-            folded.flat.data_ptr(), num_alleles, out.data_ptr(), stream)
+        if folded.width == 2:
+            err = lib.read_conv_reduce_wide_run(
+                rows.data_ptr(), nb, rows.shape[2], row_allele.data_ptr(),
+                row_valid.data_ptr(), folded.flat.data_ptr(), num_alleles,
+                out.data_ptr(), stream)
+        else:
+            err = lib.read_conv_reduce_run(
+                rows.data_ptr(), nb, rows.shape[2], ROUTE_IDS[folded.route],
+                row_allele.data_ptr(), row_valid.data_ptr(),
+                folded.flat.data_ptr(), num_alleles, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"read_conv_reduce launch failed: cudaError {err}")
     read_conv_reduce.launches += 1
     read_conv_reduce.launches_by_route[folded.route] += 1
+    read_conv_reduce.launches_by_width[folded.width] += 1
     folded.launches += 1
     return out
 
@@ -588,6 +662,7 @@ def reset_launches():
     """Set every launch count of ``read_conv_reduce`` to 0."""
     read_conv_reduce.launches = 0
     read_conv_reduce.launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
+    read_conv_reduce.launches_by_width = dict.fromkeys(WIDTH_ROUTES, 0)
 
 
 reset_launches()

@@ -2,7 +2,9 @@
 
 A variant is the kernel's sources with text substitutions in the route's
 own file (``--route bf16``: ``csrc/read_conv_wgmma.cuh``; ``tf32x3`` and
-``tf32``: ``TF32_SOURCE``, one file for both): another number of read rows
+``tf32``: ``TF32_SOURCE``, one file for both; ``wide``: ``WIDE_SOURCE``, the
+wide read convolver's bf16 kernel, with ``illumina_wide``'s weights):
+another number of read rows
 per block or of weight stages, one atomic per row instead of one per
 allele, or one part of the block's work taken out (the products, the
 weight copies, the epilogue's stores, the atomics) to show what that part
@@ -13,11 +15,13 @@ occupied, C = 6), in turns: the variants forward, then backward, so that
 drift of the card's clock cancels.  Variants that keep the arithmetic are
 held to the plain version as chip_smoke.py holds the kernel (max abs error
 at most a quarter of the plain bf16 version's distance from fp32); the
-others are only timed.
+others are only timed.  ``--mix cell`` times the benchmark cell's reads
+instead: 2048 alleles of 20 to 60 rows.
 
 Usage, on a machine with the card:
     python -m hello_tpu_torch.ops.read_conv_variants [--variants base,rows10]
-        [--reps 20] [--seed 0]
+        [--route bf16|tf32x3|tf32|wide] [--mix kernel|cell] [--reps 20]
+        [--seed 0]
 It prints one JSON line per variant and round, then one line of medians.
 """
 
@@ -118,14 +122,40 @@ TF32_VARIANTS = {
                       ("constexpr int kLoads1 = 2;", "constexpr int kLoads1 = 4;"))),
 }
 
-#: route -> (the file its edits apply to, its variants, a word of its
-#: kernels' names in ptxas' report)
+#: the wide read convolver's header: its edits, in the same form
+WIDE_SOURCE = "read_conv_wgmma_wide.cuh"
+_SPAN = "constexpr int kSpan = 40;"
+_WIDE_NO_PRODUCTS = ("          wgmma<CO>(acc[t],",
+                     "          if (kRows < 0) wgmma<CO>(acc[t],")
+WIDE_VARIANTS = {
+    "base": (True, ()),
+    "span20": (True, ((_SPAN, "constexpr int kSpan = 20;"),)),
+    "span80": (True, ((_SPAN, "constexpr int kSpan = 80;"),)),
+    "no_products": (False, (_WIDE_NO_PRODUCTS,)),
+    # each slice's barrier completes on one arrival: no weight byte moves,
+    # and the products read stale stages
+    "no_weight_traffic": (False, ((
+        "bulk_load(stages + (J % kStages) * kStage, weights + OFF, "
+        "unit_bytes(I), bars + J % kStages);",
+        "mbar_arrive(bars + J % kStages, true);"),)),
+    "no_atomics": (False, (("atomicAdd(out + ",
+                            "if (sum == -1.0f) atomicAdd(out + "),)),
+    "no_products_no_epilogue": (False, (
+        _WIDE_NO_PRODUCTS,
+        ("if (r >= kRows || l >= LO) continue;", "continue;"))),
+}
+
+#: route -> (the file its edits apply to, its variants, the start of its
+#: kernels' mangled names in ptxas' report: their namespace)
 ROUTE_VARIANTS = {
-    "bf16": (HEADER, VARIANTS, "rcw"),
-    "tf32x3": (TF32_SOURCE, TF32_VARIANTS, "rct"),
-    "tf32": (TF32_SOURCE, TF32_VARIANTS, "rct"),
+    "bf16": (HEADER, VARIANTS, "_ZN3rcw"),
+    "tf32x3": (TF32_SOURCE, TF32_VARIANTS, "_ZN3rct"),
+    "tf32": (TF32_SOURCE, TF32_VARIANTS, "_ZN3rct"),
+    "wide": (WIDE_SOURCE, WIDE_VARIANTS, "_ZN4rcw2"),
 }
 ALLELES, READS, OCCUPANCY = 2049, 32, 0.6
+#: the benchmark cell's mix (``--mix cell``): reads per allele
+CELL_ALLELES, CELL_READS = 2048, (20, 60)
 
 
 def variant_sources(name: str, route: str = "bf16") -> dict:
@@ -178,20 +208,28 @@ def build_variant(name: str, workdir: str, route: str = "bf16",
                  if "Used" in line and marker in " ".join(report[i - 2:i])]
 
 
-def inputs(seed: int):
-    """Packed rows as the coded wire ships them (chip_smoke.py's kernel
-    phase): each allele's rows together, then padding rows."""
+def inputs(seed: int, mix: str = "kernel"):
+    """Packed rows as the coded wire ships them: each allele's rows
+    together, then padding rows; chip_smoke.py's kernel phase (``kernel``)
+    or the benchmark cell's reads (``cell``).  Returns the rows, their
+    alleles and validities on the card, and the number of alleles."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    counts = rng.binomial(READS, OCCUPANCY, size=ALLELES)
-    allele = np.repeat(np.arange(ALLELES, dtype=np.int32), counts)
+    if mix == "cell":
+        lo, hi = CELL_READS
+        A = CELL_ALLELES
+        counts = rng.permutation(lo + (np.arange(A) * (hi - lo + 1)) // A)
+    else:
+        A = ALLELES
+        counts = rng.binomial(READS, OCCUPANCY, size=A)
+    allele = np.repeat(np.arange(A, dtype=np.int32), counts)
     n_pad = (-len(allele)) % 1024 + 512
-    allele = np.concatenate([allele, np.full(n_pad, ALLELES, np.int32)])
-    valid = (allele < ALLELES).astype(np.float32)
+    allele = np.concatenate([allele, np.full(n_pad, A, np.int32)])
+    valid = (allele < A).astype(np.float32)
     rows = rng.randint(0, 256, (len(allele), 150, 6), dtype=np.uint8)
-    return [torch.from_numpy(a).cuda() for a in (rows, allele, valid)]
+    return [torch.from_numpy(a).cuda() for a in (rows, allele, valid)] + [A]
 
 
 def main(argv=None):
@@ -205,9 +243,12 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--route", default="bf16",
-                    help="bf16, tf32x3 or tf32; or tf32x3,tf32: the TF32 "
-                         "routes share their source and variants, which are "
-                         "then built once and timed for both")
+                    help="bf16, tf32x3, tf32 or wide; or tf32x3,tf32: the "
+                         "TF32 routes share their source and variants, which "
+                         "are then built once and timed for both")
+    ap.add_argument("--mix", default="kernel", choices=("kernel", "cell"),
+                    help="chip_smoke.py's kernel-phase reads, or the "
+                         "benchmark cell's (2048 alleles of 20 to 60)")
     ap.add_argument("--variants", default=None,
                     help="comma-separated (default: all of the route's)")
     ap.add_argument("--against", default=None,
@@ -237,25 +278,37 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    model = init_params(create_model("illumina"),
+    wide = routes == ["wide"]
+    model = init_params(create_model("illumina_wide" if wide else "illumina"),
                         torch.Generator().manual_seed(args.seed))
-    rows, allele, valid = inputs(args.seed)
+    net = model.read_convolver0
+    rows, allele, valid, A = inputs(args.seed, args.mix)
     cuda = lambda f: rc.FoldedReadConv(
         tuple((w.cuda(), b.cuda()) for w, b in f.convs), f.flat.cuda(),
-        f.in_channels, f.route)
-    folded = {r: cuda(rc.fold_read_conv_weights(model.read_convolver0, r))
-              for r in {*routes, "tf32x3"}}
+        f.in_channels, f.route, width=f.width)
+    if wide:
+        # the wide kernel's bf16 fold; its fp32 weights for the yardstick
+        # (the plain version reads only the convs and the route)
+        ws = [t.detach().float() for t in rc.extract_read_conv_weights(net)]
+        wide_fold = rc.fold_read_conv_weights(net, "bf16")
+        folds = {"wide": wide_fold, "tf32x3": rc.FoldedReadConv(
+            tuple(zip(ws[0::2], ws[1::2])), torch.zeros(0),
+            wide_fold.in_channels, "tf32x3", width=2)}
+    else:
+        folds = {r: rc.fold_read_conv_weights(net, r)
+                 for r in {*routes, "tf32x3"}}
+    folded = {r: cuda(f) for r, f in folds.items()}
     with torch.no_grad():
         # the plain version in fp32 math, and with cuDNN's TF32 as each
         # route's precision sets it (on at default only)
         torch.backends.cudnn.allow_tf32 = False
         exact = rc.read_conv_reduce_reference(rows, allele, valid,
-                                              folded["tf32x3"], ALLELES)
+                                              folded["tf32x3"], A)
         want = {}
         for r in routes:
             torch.backends.cudnn.allow_tf32 = r == "tf32"
             want[r] = rc.read_conv_reduce_reference(rows, allele, valid,
-                                                    folded[r], ALLELES)
+                                                    folded[r], A)
         torch.backends.cudnn.allow_tf32 = False
 
     def holds(route, got):
@@ -285,15 +338,28 @@ def main(argv=None):
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            if wide:
+                lib.read_conv_reduce_wide_run.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             libs[n] = lib
 
         def run(n, route):
-            out = torch.zeros((ALLELES, rc.L_OUT, rc.C_OUT), device="cuda")
-            err = libs[n].read_conv_reduce_run(
-                rows.data_ptr(), rows.shape[0], 6, rc.ROUTE_IDS[route],
-                allele.data_ptr(), valid.data_ptr(),
-                folded[route].flat.data_ptr(), ALLELES, out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+            f = folded[route]
+            out = torch.zeros((A, rc.L_OUT, rc.C_OUT * f.width),
+                              device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+            if wide:
+                err = libs[n].read_conv_reduce_wide_run(
+                    rows.data_ptr(), rows.shape[0], 6, allele.data_ptr(),
+                    valid.data_ptr(), f.flat.data_ptr(), A, out.data_ptr(),
+                    stream)
+            else:
+                err = libs[n].read_conv_reduce_run(
+                    rows.data_ptr(), rows.shape[0], 6, rc.ROUTE_IDS[route],
+                    allele.data_ptr(), valid.data_ptr(), f.flat.data_ptr(),
+                    A, out.data_ptr(), stream)
             if err != 0:
                 raise RuntimeError(f"variant {n} of route {route}: "
                                    f"cudaError {err}")

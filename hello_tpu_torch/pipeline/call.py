@@ -20,7 +20,8 @@ instead of carrying on on the CPU.  ``--profile_dir`` traces the run
 (telemetry.device_trace), the Scorer's spans (``scorer.dispatch`` and its
 ``scorer.upload`` and ``scorer.launch``, inside which ``scorer.capture`` or
 ``scorer.replay`` where a captured CUDA graph runs the forward) on a track
-of their own, and the card's time in layer-route read convolvers
+of their own, and the card's time in the read convolvers the width-1
+kernel does not implement, on the layer route or the wide kernel
 (``scorer.read_conv_layers``).
 """
 
@@ -47,9 +48,8 @@ from ..io.vcf import VcfRecord, make_record, write_vcf
 from ..nn.genotype import decode_batch
 from ..nn import layers as nn_layers
 from ..nn.archs import NAMED_CONFIGS
-from ..nn.moe import (LayerRoute, MoEAttention, create_model,
-                      layer_route_calls)
-from ..ops.read_conv import ROUTE_IDS
+from ..nn.moe import MoEAttention, create_model, layer_route_calls, stamped
+from ..ops.read_conv import ROUTE_IDS, WIDTH_ROUTES
 from . import graphs
 from .batching import PaddedBatch, SiteWork, group_sites_for_batching, pack_sites
 from .candidates import generate_sites
@@ -163,15 +163,16 @@ class Scorer:
     kernel's and the layer route's counters count only what their Python
     code launches (eager forwards and captures); the launches that later
     replays run again are ``replayed_launches_by_route``,
-    ``replayed_layer_route_calls`` and ``replayed_layer_route_rows``.  The
-    CPU runs every batch eagerly.
+    ``replayed_launches_by_width``, ``replayed_layer_route_calls`` and
+    ``replayed_layer_route_rows``.  The CPU runs every batch eagerly.
 
-    On the card a forward with a layer-route read convolver also returns
-    ``read_conv_stamps`` (int64 [read convolvers, 2]: the card's clock
-    before and after each, ``MoEAttention.forward``), copied to the host
-    with the answers; ``finalize_many`` records their time as
-    ``scorer.read_conv_layers``, so eager, captured and replayed batches
-    each carry their own.  The kernel route ships no stamps."""
+    On the card a forward with a read convolver that the width-1 kernel
+    does not implement (``nn.moe.stamped``: the layer route, or the wide
+    kernel) also returns ``read_conv_stamps`` (int64 [read convolvers, 2]:
+    the card's clock before and after each, ``MoEAttention.forward``),
+    copied to the host with the answers; ``finalize_many`` records their
+    time as ``scorer.read_conv_layers``, so eager, captured and replayed
+    batches each carry their own.  Width-1 folds ship no stamps."""
 
     # consumes pre-coded WireBatch inputs (pack_sites_wire) directly
     accepts_wire = True
@@ -219,6 +220,7 @@ class Scorer:
         self._graphs = [graphs.GraphCache() for _ in self.devices]
         self.graph_counts = {"eager": 0, "captured": 0, "replayed": 0}
         self.replayed_launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
+        self.replayed_launches_by_width = dict.fromkeys(WIDTH_ROUTES, 0)
         self.replayed_layer_route_calls = dict.fromkeys(layer_route_calls, 0)
         self.replayed_layer_route_rows = dict.fromkeys(layer_route_calls, 0)
         self._refresh(0)
@@ -232,7 +234,7 @@ class Scorer:
 
     @property
     def folded(self) -> dict:
-        """The primary's folded read convolvers (``FoldedReadConv`` for the
+        """The primary's folded read convolvers (``FoldedReadConv`` for a
         kernel, ``nn.moe.LayerRoute`` for the layer route)."""
         return self._replicas[0].folded
 
@@ -317,7 +319,7 @@ class Scorer:
             batch = expand_compact(d)          # no-op for dense batches
         stamps = None
         if batch["site_ids"].is_cuda and any(
-                isinstance(f, LayerRoute) for f in rep.folded.values()):
+                stamped(f) for f in rep.folded.values()):
             stamps = torch.zeros((len(rep.folded), 2), dtype=torch.int64,
                                  device=batch["site_ids"].device)
         out = rep.model(batch, folded=rep.folded, stamps=stamps)
@@ -349,6 +351,8 @@ class Scorer:
             self.graph_counts["replayed"] += 1
             for route, n in graph.launches.items():
                 self.replayed_launches_by_route[route] += n
+            for width, n in graph.launches_by_width.items():
+                self.replayed_launches_by_width[width] += n
             for name, n in graph.layer_route_calls.items():
                 self.replayed_layer_route_calls[name] += n
             for name, n in graph.layer_route_rows.items():

@@ -9,7 +9,7 @@ import torch
 
 from hello_tpu_torch.nn import layers
 from hello_tpu_torch.nn.convert import init_params
-from hello_tpu_torch.nn.moe import create_model
+from hello_tpu_torch.nn.moe import LayerRoute, create_model
 from hello_tpu_torch.pipeline import bf16_conv_check as check
 from hello_tpu_torch.pipeline.batching import SiteWork, pack_sites
 
@@ -36,6 +36,9 @@ def bf16():
 
 @pytest.mark.parametrize("name", ["illumina_layer_norm", "illumina_wide"])
 def test_every_bf16_conv_is_read_against_float64(name, bf16):
+    """Every conv layer of a forward whose read convolver takes the layer
+    route (pinned: at bf16 the wide one folds to its kernel, whose plain
+    version tests/test_torch_read_conv_wide.py reads)."""
     model = init_params(create_model(name),
                         torch.Generator().manual_seed(0)).eval()
     convs = []
@@ -44,7 +47,7 @@ def test_every_bf16_conv_is_read_against_float64(name, bf16):
     errors = []
     plain = layers.conv1d_bf16
     with check.conv_errors_against_float64(errors), torch.inference_mode():
-        model(_batch())
+        model(_batch(), folded={"read_conv0": LayerRoute()})
     for h in handles:
         h.remove()
     assert layers.conv1d_bf16 is plain

@@ -29,7 +29,7 @@ from hello_tpu_torch.ops import read_conv_layout as lay
 NB = 2                      # read rows in the modelled block
 #: the files the kernel library is built from
 SOURCES = {"read_conv.cu", "read_conv_wgmma.cuh", "read_conv_wgmma_tf32.cuh",
-           "wgmma_ptx.cuh"}
+           "read_conv_wgmma_wide.cuh", "wgmma_ptx.cuh"}
 
 
 def bf16(x):

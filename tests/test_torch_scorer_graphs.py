@@ -9,8 +9,10 @@ capture launched to the Scorer's replayed counts and leaves the wrappers'
 counters alone.
 
 On the card (marked ``card``; each skips without one): for ``hybrid``,
-``illumina`` and ``illumina_wide`` (the layer route, whose per-allele sum
-runs in a fixed order) at ``bf16`` and ``highest``, over two wire shapes,
+``illumina``, ``illumina_wide`` (pinned to the layer route, whose per-allele
+sum runs in a fixed order) and ``illumina_wide_kernel`` (its own fold: the
+width-2 kernel at ``bf16``, whose sum runs in a fixed order too) at
+``bf16`` and ``highest``, over two wire shapes,
 decoded and not, the answers of captured and replayed batches are
 bit-equal to eager ``Scorer._forward`` of the same batch (at most 5 reads
 per allele, so that the read convolver kernel's per-allele atomics add at
@@ -19,12 +21,13 @@ on every run); a
 ``load_state_dict`` between batches drops the graphs and the answers
 follow the new weights; the wrappers' launch counters count the eager and
 captured batches and the Scorer's replayed counts the replays, together what
-eager runs of the same batches count, on the kernel route and the layer
-route; a thread that finalizes earlier batches while a capture runs, as
+eager runs of the same batches count, on the kernel route (by route and by
+width) and the layer route; a thread that finalizes earlier batches while a capture runs, as
 ``call_parallel``'s drainer does, neither breaks the capture nor changes an
 answer; a capture returns while the card is still busy with earlier
 work; the card's stamps around ``illumina_wide``'s layer-route read
-convolver give replayed batches ``scorer.read_conv_layers`` records that
+convolver (pinned; tests/test_torch_read_conv_wide_card.py holds the wide
+kernel's) give replayed batches ``scorer.read_conv_layers`` records that
 agree with eager ones of the same shape; and one replay under the
 profiler runs one pair of stamp kernels for the read convolver while the
 Scorer's replayed ``layer_route_rows`` grow by what an eager batch of the
@@ -96,7 +99,16 @@ def counters():
 
 
 def _model(name, seed=0):
-    return init_params(create_model(name), torch.Generator().manual_seed(seed))
+    """The named config's model, seeded; ``illumina_wide`` pinned to the
+    layer route at every precision (at bf16 its own fold takes the width-2
+    kernel: ``illumina_wide_kernel``)."""
+    kernel = name.endswith("_kernel")
+    model = init_params(create_model(name[:-len("_kernel")] if kernel
+                                     else name),
+                        torch.Generator().manual_seed(seed))
+    if name == "illumina_wide":
+        model.fold_read_convs = lambda: {"read_conv0": moe.LayerRoute()}
+    return model
 
 
 def _wire(hybrid, shape, seed):
@@ -281,7 +293,8 @@ def _equal(got, want):
 
 @pytest.mark.card
 @pytest.mark.parametrize("precision", ["bf16", "highest"])
-@pytest.mark.parametrize("name", ["hybrid", "illumina", "illumina_wide"])
+@pytest.mark.parametrize("name", ["hybrid", "illumina", "illumina_wide",
+                                  "illumina_wide_kernel"])
 def test_replayed_answers_are_bit_equal_to_eager(card, name, precision):
     layers.set_precision(precision)
     scorer = Scorer(_model(name), device=card)
@@ -322,13 +335,16 @@ def test_load_state_dict_drops_the_graphs(card):
 
 
 def _counts(scorer):
-    """The wrappers' counters and the Scorer's replayed counts."""
+    """The wrappers' counters and the Scorer's replayed counts; by width
+    last."""
     rc = read_conv.read_conv_reduce
     return (rc.launches, dict(rc.launches_by_route),
             dict(moe.layer_route_calls),
             {k: getattr(f, "launches", None) for k, f in scorer.folded.items()},
             dict(scorer.replayed_launches_by_route),
-            dict(scorer.replayed_layer_route_calls))
+            dict(scorer.replayed_layer_route_calls),
+            dict(rc.launches_by_width),
+            dict(scorer.replayed_launches_by_width))
 
 
 def _diff(after, before):
@@ -338,7 +354,8 @@ def _diff(after, before):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["hybrid", "illumina_wide"])
+@pytest.mark.parametrize("name", ["hybrid", "illumina_wide",
+                                  "illumina_wide_kernel"])
 def test_launch_counters_count_eager_and_replayed_launches_apart(
         card, counters, name):
     layers.set_precision("bf16")
@@ -362,8 +379,11 @@ def test_launch_counters_count_eager_and_replayed_launches_apart(
     assert got[:4] == launched[:4]
     assert got[4] == {r: n - launched[1][r] for r, n in eager[1].items()}
     assert got[5] == {k: n - launched[2][k] for k, n in eager[2].items()}
+    assert got[6] == launched[6]
+    assert got[7] == {w: n - launched[6][w] for w, n in eager[6].items()}
     assert eager[0] + sum(eager[2].values()) == len(batches) * (
         2 if hybrid else 1)
+    assert sum(eager[6].values()) == eager[0]
 
 
 @pytest.mark.card
@@ -424,12 +444,22 @@ def test_a_thread_finalizing_during_a_capture(card):
         _equal(g, want)
 
 
+#: card cycles of the spin queued ahead of each batch whose stamps are read
+#: (some 50 ms at the H100's clock)
+HOLD_CYCLES = 100_000_000
+
+
 def _layer_records(scorer, batches):
     """Score ``batches`` one at a time: each batch's
-    ``scorer.read_conv_layers`` record in ms, in order."""
+    ``scorer.read_conv_layers`` record in ms, in order.  The card spins
+    ahead of each batch while the host enqueues it, so an eager batch's
+    stamps bracket the card's work and not the host's enqueue of it (the
+    layer route's hundreds of launches can fall behind 10 ms of the
+    card's)."""
     t0 = telemetry.now_ns()
     first = scorer._next
     for b in batches:
+        torch.cuda._sleep(HOLD_CYCLES)
         scorer.finalize(scorer.score_async(b, decode=True))
     got = {s.key: (s.end_ns - s.start_ns) / 1e6
            for s in telemetry.spans(t0, telemetry.now_ns())
@@ -440,8 +470,8 @@ def _layer_records(scorer, batches):
 @pytest.mark.card
 def test_replayed_stamps_agree_with_eager_ones(card, monkeypatch):
     layers.set_precision("bf16")
-    # 64 sites x 2 alleles x 20 reads: some 5 ms of the card's a batch, so
-    # that an eager batch's enqueue runs ahead of the card as a replay does
+    # 64 sites x 2 alleles x 20 reads: some 10 ms of the card's a batch
+    # (_layer_records holds the card while the host enqueues each batch)
     shape = (64, 2, 20, 0)
     batches = [_wire(False, shape, seed) for seed in range(7)]
     replaying = Scorer(_model("illumina_wide"), device=card)
