@@ -215,7 +215,7 @@ Phases, each printing one JSON line:
              highest on the card and the CPU, held as main_path holds them
              (or 1 - p within the decode's resolution, as train_path);
              every read convolver on the layer route (its layers under
-             no_grad; layer_route_calls > 0) and no launch of
+             no_grad; each counted in the launch ledger) and no launch of
              read_conv_reduce; illumina_wide and illumina_layer_norm also at
              bf16 on the layer route (illumina_wide's pinned): every layer on
              the card fed the CPU's own bf16 input
@@ -299,6 +299,52 @@ KERNEL_OCCUPANCY = 0.6
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def launched(before=(), only=None):
+    """What the launch ledger (``telemetry.count``) has gained since
+    ``before``, one of its ``counts()`` (since the process began when left
+    out), grouped as the phases print it: the kernel's launches by route
+    and by width, the read convolvers' reductions by route and network
+    (``"layers"``: the layer route), the layer route's rows and the card
+    stamps; under ``"replayed"`` the same for the Scorers' graph replays.
+    With ``only``, a kernel route, raises unless that route alone
+    launched, at least once."""
+    from collections import Counter
+
+    from hello_tpu_torch import telemetry
+    from hello_tpu_torch.ops.read_conv import ROUTE_IDS, WIDTH_ROUTES
+
+    def group():
+        return {"launches_by_route": dict.fromkeys(ROUTE_IDS, 0),
+                "launches_per_width": dict.fromkeys(WIDTH_ROUTES, 0),
+                "read_conv": {}, "layer_rows": {}, "card_stamps": 0}
+
+    got = group()
+    got["replayed"] = group()
+    for key, n in (telemetry.counts() - Counter(before)).items():
+        g = got
+        if key[0] == "replayed":
+            g, key = got["replayed"], key[1:]
+        if key[0] == "read_conv_reduce":
+            g["launches_by_route"][key[1]] += n
+            g["launches_per_width"][key[2]] += n
+        elif key[0] == "read_conv":
+            g["read_conv"].setdefault(key[2], {})[key[1]] = n
+        elif key[0] == "layer_rows":
+            g["layer_rows"][key[1]] = n
+        elif key[0] == "card_stamp":
+            g["card_stamps"] = n
+    by_route = got["launches_by_route"]
+    if only is not None and not 0 < by_route[only] == sum(by_route.values()):
+        raise AssertionError(f"launched {by_route}: route {only} only, at "
+                             "least once")
+    return got
+
+
+def layer_calls(got, net):
+    """``launched``'s layer-route reductions of read convolver ``net``."""
+    return got["read_conv"].get("layers", {}).get(net, 0)
 
 
 def card_peaks(name):
@@ -893,10 +939,11 @@ def _wide_leg(net, rows, row_allele, row_valid, A, zero_alleles=()):
     """One leg of the wide kernel against its plain version: (the kernel's
     answer, the leg's line, whether it holds: max abs error at most a
     quarter of the plain bf16 version's distance from fp32, alleles with no
-    computed row exactly zero, two runs bit-equal, two launches counted in
-    ``launches_by_width[2]``, every value finite), and its fold."""
+    computed row exactly zero, two runs bit-equal, two width-2 launches
+    counted, every value finite), and its fold."""
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.ops import read_conv as rc
 
     C = rows.shape[2]
@@ -907,12 +954,11 @@ def _wide_leg(net, rows, row_allele, row_valid, A, zero_alleles=()):
     fp32 = rc.FoldedReadConv(tuple(zip(ws[0::2], ws[1::2])), folded.flat, C,
                              "tf32x3", width=2)
     exact = _plain(rows, row_allele, row_valid, fp32, A, tf32=False)
-    before = dict(rc.read_conv_reduce.launches_by_width)
+    counted = telemetry.counts()
     got = rc.read_conv_reduce(rows, row_allele, row_valid, folded, A)
     again = rc.read_conv_reduce(rows, row_allele, row_valid, folded, A)
     torch.cuda.synchronize()
-    launched = {w: n - before[w] for w, n in
-                rc.read_conv_reduce.launches_by_width.items()}
+    widths = launched(counted)["launches_per_width"]
     want = _plain(rows, row_allele, row_valid, folded, A, False)
     err = (got - want).abs().max().item()
     bf16_vs_fp32 = (want - exact).abs().max().item()
@@ -930,9 +976,9 @@ def _wide_leg(net, rows, row_allele, row_valid, A, zero_alleles=()):
                 ((got - want).abs().mean() / (want - exact).abs().mean()).item(),
             "bar": "max_abs_err <= 0.25 * plain_bf16_vs_fp32_max_abs",
             "masked_alleles_zero": zeros_exact, "bit_equal_runs": bit_equal,
-            "launches_by_width": launched}
+            "launches_per_width": widths}
     ok = (err <= 0.25 * bf16_vs_fp32 and zeros_exact and bit_equal
-          and launched == {1: 0, 2: 2} and bool(torch.isfinite(got).all()))
+          and widths == {1: 0, 2: 2} and bool(torch.isfinite(got).all()))
     return got, line, ok, folded
 
 
@@ -1078,7 +1124,6 @@ def main_path_phase(workdir):
     from hello_tpu_torch import native, sim, telemetry
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn.layers import set_precision
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
 
     t0 = time.perf_counter()
@@ -1099,18 +1144,14 @@ def main_path_phase(workdir):
     out_card = os.path.join(workdir, "card.vcf")
     stats = {}
     telemetry.reset()
-    rc.reset_launches()
+    counted = telemetry.counts()
     t0 = time.perf_counter()
     call_genome(bam, ds.fasta, scorer, out_card, stats=stats)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = rc.read_conv_reduce.launches_by_route["tf32x3"]
-    if launches != rc.read_conv_reduce.launches:
-        raise AssertionError("the highest path launched another route: "
-                             f"{rc.read_conv_reduce.launches_by_route}")
+    got = launched(counted, only="tf32x3")
+    launches = got["launches_by_route"]["tf32x3"]
     stages = telemetry.report()
-    if launches <= 0:
-        raise AssertionError("the main path never launched read_conv_reduce")
     card = read_vcf(out_card)
     cpu, cpu_s = call_on_cpu("illumina", scorer, bam, ds.fasta,
                              os.path.join(workdir, "cpu.vcf"))
@@ -1121,10 +1162,7 @@ def main_path_phase(workdir):
           "sites": stats["sites"], "records": len(card),
           "seconds": card_s, "windows_per_s": stats["sites"] / card_s,
           "read_conv_reduce_launches": launches, "stages": stages,
-          "graph_counts": scorer.graph_counts,
-          "replayed_launches_by_route": scorer.replayed_launches_by_route,
-          "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
-          "replayed_launches_by_width": scorer.replayed_launches_by_width,
+          "graph_counts": scorer.graph_counts, **got,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1]})
@@ -1139,7 +1177,6 @@ def hybrid_path_phase(workdir):
     from hello_tpu_torch import sim, telemetry
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn.layers import set_precision
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
 
     t0 = time.perf_counter()
@@ -1158,21 +1195,16 @@ def hybrid_path_phase(workdir):
     out_card = os.path.join(workdir, "card.vcf")
     stats = {}
     telemetry.reset()
-    rc.reset_launches()
-    for folded in scorer.folded.values():
-        folded.launches = 0
+    counted = telemetry.counts()
     t0 = time.perf_counter()
     call_genome(bams, ds.fasta, scorer, out_card, stats=stats)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    # every card's replica of each read convolver (one on one card)
-    folds = [f for f in scorer.replica_folds() if f is not None]
-    launches = {name: sum(f[name].launches for f in folds)
-                for name in scorer.folded}
-    total = rc.read_conv_reduce.launches_by_route["tf32x3"]
-    if total != rc.read_conv_reduce.launches:
-        raise AssertionError("the highest path launched another route: "
-                             f"{rc.read_conv_reduce.launches_by_route}")
+    # each read convolver's reductions, on every card's replica
+    got = launched(counted, only="tf32x3")
+    on_route = got["read_conv"].get("tf32x3", {})
+    launches = {name: on_route.get(name, 0) for name in scorer.folded}
+    total = got["launches_by_route"]["tf32x3"]
     stages = telemetry.report()
     if min(launches.values()) <= 0 or total != sum(launches.values()):
         raise AssertionError(f"the hybrid path's read_conv_reduce launches "
@@ -1199,10 +1231,7 @@ def hybrid_path_phase(workdir):
           "sites": stats["sites"], "records": len(card),
           "seconds": card_s, "windows_per_s": stats["sites"] / card_s,
           "read_conv_reduce_launches": launches, "stages": stages,
-          "graph_counts": scorer.graph_counts,
-          "replayed_launches_by_route": scorer.replayed_launches_by_route,
-          "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
-          "replayed_launches_by_width": scorer.replayed_launches_by_width,
+          "graph_counts": scorer.graph_counts, **got,
           "cpu_seconds": cpu_s, "compared_region": f"{ds.chromosome} whole",
           "records_equal": True, "max_qual_diff": worst[0],
           "qual_at_max_diff": worst[1],
@@ -1264,7 +1293,6 @@ def parallel_path_phase(workdir):
     from hello_tpu_torch import sim, telemetry
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn.layers import set_precision
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import load_scorer
     from hello_tpu_torch.pipeline.parallel_call import (HostWorkerPool,
                                                         call_parallel)
@@ -1289,27 +1317,18 @@ def parallel_path_phase(workdir):
             out = os.path.join(workdir, f"card_{precision}.vcf")
             stats = {}
             telemetry.reset()
-            rc.reset_launches()
+            counted = telemetry.counts()
             t0 = time.perf_counter()
             call_parallel(bam, ds.fasta, scorer, out, pool=pool,
                           chunk_size=PARALLEL_CHUNK, stats=stats)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            by_route = dict(rc.read_conv_reduce.launches_by_route)
             route = route_of[precision]
-            if by_route[route] <= 0 or sum(by_route.values()) != by_route[route]:
-                raise AssertionError(f"parallel_path at {precision} launched "
-                                     f"{by_route}: only route {route} may run")
-            launches[route] = by_route[route]
+            got = launched(counted, only=route)
+            launches[route] = got["launches_by_route"][route]
             legs[precision] = {"records": read_vcf(out), "seconds": seconds,
-                               "sites": stats["sites"],
-                               "launches_by_route": by_route,
-                               "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
+                               "sites": stats["sites"], **got,
                                "graph_counts": dict(scorer.graph_counts),
-                               "replayed_launches_by_route":
-                                   dict(scorer.replayed_launches_by_route),
-                               "replayed_launches_by_width":
-                                   dict(scorer.replayed_launches_by_width),
                                "stages": {k: stats[k] for k in (
                                    "wait_s", "pack_s", "dispatch_s",
                                    "stage_backpressure_s", "backpressure_s",
@@ -1584,6 +1603,7 @@ def bench_packed_path_phase():
     import numpy as np
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.nn import moe
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.nn.moe import LayerRoute
@@ -1611,7 +1631,7 @@ def bench_packed_path_phase():
         model, batch0 = inputs["model"], inputs["batches"][:1]
         kernel[precision] = {p: tuple(t.numpy() for t in out)
                              for p, out in result["outputs"].items()}
-        rc.reset_launches()
+        counted = telemetry.counts()
         layer_routes = {name: LayerRoute() for name in inputs["folded"]}
         (wire,) = bp.path_batches("packed", batch0)
         plain[precision] = tuple(t.cpu().numpy() for t in bp.forward(
@@ -1620,7 +1640,7 @@ def bench_packed_path_phase():
                                rc.read_conv_reduce_reference):
             version[precision] = tuple(t.cpu().numpy() for t in bp.forward(
                 model, inputs["folded"], "packed", wire))
-        if sum(rc.read_conv_reduce.launches_by_route.values()):
+        if sum(launched(counted)["launches_by_route"].values()):
             raise AssertionError("bench_packed_path: a plain forward "
                                  "launched the kernel")
         got = agreement.setdefault(precision, {})
@@ -1661,7 +1681,7 @@ def bench_packed_path_phase():
                         raise AssertionError(f"bench_packed_path at "
                                              f"{precision}, {path}, platform "
                                              f"{k}: {e}") from None
-        checks[route] = rc.read_conv_reduce.launches_by_route[route]
+        checks[route] = launched(counted)["launches_by_route"][route]
         real = wire["allele_mask"].cpu().numpy() > 0
         sites = wire["site_ids"].cpu().numpy()
         legs[precision] = {k: v for k, v in result.items()
@@ -1688,15 +1708,16 @@ def bench_read_conv_path_phase():
     control of the tf32x3 bar.  Returns {precision: {route: launches}}."""
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.ops import bench_read_conv as br
-    from hello_tpu_torch.ops import read_conv as rc
 
     t_phase = time.perf_counter()
     legs, launches, checks = {}, {}, {}
     for argv in BENCH_READ_CONV_ARGVS:
-        rc.reset_launches()
+        counted = telemetry.counts()
         result = br.run(argv)
-        by_route = dict(rc.read_conv_reduce.launches_by_route)
+        got = launched(counted)
+        by_route = got["launches_by_route"]
         br.report(result)
         precision = result["precision"]
         routes = [line["route"] for line in result["paths"]
@@ -1716,12 +1737,10 @@ def bench_read_conv_path_phase():
             except AssertionError as e:
                 raise AssertionError(f"bench_read_conv_path at {precision}, "
                                      f"{line['tag']}: {e}") from None
-        if dict(rc.read_conv_reduce.launches_by_route) != by_route:
+        if launched(counted)["launches_by_route"] != by_route:
             raise AssertionError("bench_read_conv_path: the plain versions "
                                  "launched the kernel")
-        legs[precision] = {"paths": result["paths"],
-                           "launches_by_route": by_route,
-                           "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)}
+        legs[precision] = {"paths": result["paths"], **got}
         peaks, size = result["peaks"], {"A": result["A"], "R": result["R"]}
         del result, rows
         torch.cuda.empty_cache()
@@ -1747,16 +1766,16 @@ def _replay_against_trace(scorer, workdir):
     three times, the third traced, which replays (the first two run the
     shape eagerly and capture it, or replay a graph already held).  The
     kernel launches that the trace lists (kernels named
-    ``read_conv_reduce*``) are above 0 and equal what the Scorer adds to
-    ``replayed_launches_by_route`` for that replay, and the wrapper's own
-    counters do not move.  Returns the readings."""
+    ``read_conv_reduce*``) are above 0 and equal the kernel launches that
+    the replay adds to the launch ledger under ``"replayed"``, and the
+    wrapper's own keys do not move.  Returns the readings."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.bench import build_workload
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.compact import (encode_chunk_sites,
                                                   pack_sites_wire)
 
@@ -1766,8 +1785,7 @@ def _replay_against_trace(scorer, workdir):
     for _ in range(2):
         scorer.finalize(scorer.score_async(batch, decode=True))
     counts = dict(scorer.graph_counts)
-    replayed = dict(scorer.replayed_launches_by_route)
-    wrapper = dict(rc.read_conv_reduce.launches_by_route)
+    counted = telemetry.counts()
     path = os.path.join(workdir, "replay_trace.json")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1778,15 +1796,15 @@ def _replay_against_trace(scorer, workdir):
         events = json.load(f)["traceEvents"]
     traced = sum(1 for e in events if e.get("cat") == "kernel"
                  and "read_conv_reduce" in e.get("name", ""))
-    added = {r: n - replayed[r]
-             for r, n in scorer.replayed_launches_by_route.items()
-             if n != replayed[r]}
+    replay = launched(counted)
+    added = {r: n for r, n in replay["replayed"]["launches_by_route"].items()
+             if n}
     got = {"graph_counts_before": counts,
            "graph_counts": dict(scorer.graph_counts),
-           "replayed_launches_added": added,
+           "replay_added": added,
            "kernels_in_trace": traced,
            "wrapper_launches_by_route_unchanged":
-               dict(rc.read_conv_reduce.launches_by_route) == wrapper}
+               not any(replay["launches_by_route"].values())}
     if (scorer.graph_counts["replayed"] != counts["replayed"] + 1
             or traced <= 0 or traced != sum(added.values())
             or not got["wrapper_launches_by_route_unchanged"]):
@@ -1867,7 +1885,7 @@ def bench_path_phase(workdir):
     the records (the largest and median dQ reported); the training losses
     finite.  The pipeline's Scorer replays captured graphs of the shapes it
     met before: its ``graph_counts`` and the launches those replays ran
-    (``replayed_launches_by_route``, apart from the wrapper's counts) are
+    (the launch ledger's ``"replayed"`` keys, apart from the wrapper's) are
     printed, and one replay's launches are held to a profiler trace
     (_replay_against_trace).  Returns (launches of the bf16 route on the
     path, the launches of the sums' check, the bf16 route's launches run by
@@ -1875,15 +1893,20 @@ def bench_path_phase(workdir):
     import numpy as np
     import torch
 
-    from hello_tpu_torch import bench
+    from hello_tpu_torch import bench, telemetry
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.compact import expand_compact_packed
     from hello_tpu_torch.pipeline.precision_sweep import compare
 
     t_phase = time.perf_counter()
+    at_start = telemetry.counts()
     result = bench.run(BENCH_ARGV, workdir=workdir)
     line, legs, outputs = result["line"], result["legs"], result["outputs"]
+    # the pipeline leg's Scorer is the only one that replays in bench.run
+    graph_use = {"graph_counts": dict(outputs["pipeline"]["scorer"]
+                                      .graph_counts),
+                 "replayed": launched(at_start)["replayed"]}
     print(json.dumps(line), flush=True)
     rates = [k for k in line if k.endswith("_windows_per_s")] + [
         "value", "vs_baseline", "end_to_end_pct_of_device"]
@@ -1912,7 +1935,7 @@ def bench_path_phase(workdir):
     forwards = _bench_forwards_against_cpu(outputs)
     forwards_s = time.perf_counter() - t0
 
-    rc.reset_launches()
+    counted = telemetry.counts()
     leg, sums = outputs["device_wire"], {}
     with torch.inference_mode():
         x = expand_compact_packed(leg["batches"][0])
@@ -1928,16 +1951,11 @@ def bench_path_phase(workdir):
             except AssertionError as e:
                 raise AssertionError(f"bench_path, the hybrid wire leg, "
                                      f"platform {k}: {e}") from None
-    checks = rc.read_conv_reduce.launches_by_route[route]
+    checks = launched(counted)["launches_by_route"][route]
     del x, rows
 
     pipeline = outputs["pipeline"]
     scorer = pipeline["scorer"]
-    graph_use = {"graph_counts": dict(scorer.graph_counts),
-                 "replayed_launches_by_route":
-                     dict(scorer.replayed_launches_by_route),
-                 "replayed_launches_by_width":
-                     dict(scorer.replayed_launches_by_width)}
     set_precision("bf16")
     replay_trace = _replay_against_trace(scorer, workdir)
     ds = pipeline["dataset"]
@@ -1976,7 +1994,8 @@ def bench_path_phase(workdir):
           "seconds": time.perf_counter() - t_phase})
     del result, outputs, leg, pipeline, scorer
     torch.cuda.empty_cache()
-    return launches, checks, graph_use["replayed_launches_by_route"][route]
+    return (launches, checks,
+            graph_use["replayed"]["launches_by_route"][route])
 
 
 def _swap_check(trained, sites):
@@ -2058,7 +2077,6 @@ def train_path_phase(workdir):
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.nn.moe import create_model
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
     from hello_tpu_torch.pipeline.dump import dump_region
     from hello_tpu_torch.pipeline.evaluate import evaluate
@@ -2114,13 +2132,13 @@ def train_path_phase(workdir):
     train_path_bf16_phase([b for _, b in first], losses["cpu"])
 
     prefix = os.path.join(workdir, "model")
-    rc.reset_launches()              # validation runs the eval forward
+    counted = telemetry.counts()     # validation runs the eval forward
     t0 = time.perf_counter()
     trainer = train_from_shards(shards, "illumina", prefix,
                                 num_epochs=TRAIN_EPOCHS, device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    eval_launches = dict(rc.read_conv_reduce.launches_by_route)
+    eval_launches = launched(counted)["launches_by_route"]
     with open(prefix + ".metrics.jsonl") as fh:
         epochs = [json.loads(line) for line in fh]
     if (trainer.step != sum(e["batches"] for e in epochs)
@@ -2134,15 +2152,12 @@ def train_path_phase(workdir):
     out_card = os.path.join(workdir, "card.vcf")
     stats = {}
     telemetry.reset()
-    rc.reset_launches()
+    counted = telemetry.counts()
     t0 = time.perf_counter()
     call_genome(bam, ds.fasta, scorer, out_card, stats=stats)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    by_route = dict(rc.read_conv_reduce.launches_by_route)
-    if by_route["tf32x3"] <= 0 or sum(by_route.values()) != by_route["tf32x3"]:
-        raise AssertionError(f"train_path's call launched {by_route}: only "
-                             "route tf32x3, at least once")
+    by_route = launched(counted, only="tf32x3")["launches_by_route"]
     card = read_vcf(out_card)
     cpu, cpu_s = call_on_cpu("illumina", scorer, bam, ds.fasta,
                              os.path.join(workdir, "cpu.vcf"))
@@ -2219,9 +2234,9 @@ def train_path_bf16_phase(batches, cpu_highest):
     import numpy as np
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.nn.moe import create_model
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.train.trainer import TrainConfig, Trainer
 
     config = TrainConfig(lr=1e-3, binary=True)
@@ -2277,7 +2292,7 @@ def train_path_bf16_phase(batches, cpu_highest):
         return loss, grads, {k: v.cpu() for k, v in
                              t.model.state_dict().items()}
 
-    rc.reset_launches()
+    counted = telemetry.counts()
     card, card_grads = run("cuda", "bf16", len(batches))
     _, card_hi_grads = run("cuda", "highest", 0)
     stands, cpu_steps = at("bf16", cpu_trajectory)
@@ -2304,7 +2319,7 @@ def train_path_bf16_phase(batches, cpu_highest):
             "grads_held": grad_dist <= 0.5 * grad_own,
             "update_apart_share": float(sum(int(m.sum()) for m in moved)
                                         / sum(m.numel() for m in moved))})
-    launches = dict(rc.read_conv_reduce.launches_by_route)
+    launches = launched(counted)["launches_by_route"]
     cpu = [loss for loss, _ in cpu_steps]
     cpu_grads = cpu_steps[0][1]
     c, b, h = (np.asarray(v, np.float64) for v in (card, cpu, cpu_highest))
@@ -2338,29 +2353,24 @@ def train_path_bf16_phase(batches, cpu_highest):
           "cpu_bf16_vs_highest_median_leaf_distance": grad_own,
           "card_highest_vs_cpu_bf16_median_leaf_distance": control,
           "card_bf16_vs_highest_median_leaf_distance": card_own,
-          "equal_parameters": equal, "launches_by_route": launches,
-          "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)})
+          "equal_parameters": equal, "launches_by_route": launches})
 
 
 # the soak in a process of its own, so that its RSS sampler measures the
-# soak's process tree: the card's launches, the layer route's calls and the
-# card's peak allocated memory after soak.main
+# soak's process tree: the launch ledger (``launched``) and the card's peak
+# allocated memory after soak.main
 _SOAK_LAUNCHER = """
 import json
 import sys
 
 if __name__ == "__main__":
     import torch
-    from hello_tpu_torch.nn import moe
-    from hello_tpu_torch.ops import read_conv as rc
+    from chip_smoke import launched
     from hello_tpu_torch.pipeline import soak
 
     soak.main(sys.argv[1:])
-    print(json.dumps({
-        "launches_by_route": dict(rc.read_conv_reduce.launches_by_route),
-        "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
-        "layer_route_calls": dict(moe.layer_route_calls),
-        "max_memory_allocated": torch.cuda.max_memory_allocated()}))
+    print(json.dumps({**launched(only="bf16"), "max_memory_allocated":
+                      torch.cuda.max_memory_allocated()}))
 """
 
 
@@ -2396,11 +2406,9 @@ def soak_path_phase(workdir):
     if proc.returncode:
         raise AssertionError(f"the soak exited {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    launched = json.loads(proc.stdout.strip().splitlines()[-1])
-    by_route = launched["launches_by_route"]
-    if by_route["bf16"] <= 0 or sum(by_route.values()) != by_route["bf16"]:
-        raise AssertionError(f"the soak launched {by_route}: only route "
-                             "bf16, at least once")
+    counted = json.loads(proc.stdout.strip().splitlines()[-1])
+    memory = counted.pop("max_memory_allocated")
+    by_route = counted["launches_by_route"]
     report_json = report[:-len(".md")] + ".json"
     if not (os.path.exists(report) and os.path.exists(report_json)):
         raise AssertionError(f"the soak wrote {os.listdir(workdir)}")
@@ -2430,11 +2438,7 @@ def soak_path_phase(workdir):
           "pcie_before": result["tunnel_before"],
           "pcie_after": result["tunnel_after"],
           "stages": result["stages"], "gate_train_s": result["gate_train_s"],
-          "card_max_memory_allocated_mb":
-              launched["max_memory_allocated"] / 1e6,
-          "launches_by_route": by_route,
-          "launches_by_width": launched.get("launches_by_width"),
-          "layer_route_calls": launched["layer_route_calls"],
+          "card_max_memory_allocated_mb": memory / 1e6, **counted,
           "accuracy": result["accuracy"], "min_accuracy": SOAK_MIN_ACCURACY})
     return by_route["bf16"]
 
@@ -2573,9 +2577,9 @@ def ddp_path_phase(workdir, shards):
     import numpy as np
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.nn.moe import create_model
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.parallel import mesh
     from hello_tpu_torch.train import cli
     from hello_tpu_torch.train.loader import SiteDataset, device_batches
@@ -2624,7 +2628,7 @@ def ddp_path_phase(workdir, shards):
         prefix = os.path.join(workdir, name)
         saved = {k: os.environ.get(k) for k in mesh.ENV_CONTRACT}
         os.environ.update(_dist_env(_free_port()))
-        rc.reset_launches()
+        counted = telemetry.counts()
         try:
             with _StepRecorder() as rec:
                 cli.main(argv + ["--out_prefix", prefix] + extra)
@@ -2640,7 +2644,7 @@ def ddp_path_phase(workdir, shards):
                       "world": rec.world, "steps": len(rec.metrics),
                       "epochs": epochs, "steps_per_s_after_epoch0": rate,
                       "validation_launches_by_route":
-                          dict(rc.read_conv_reduce.launches_by_route)}
+                          launched(counted)["launches_by_route"]}
     nccl, plain = runs["nccl"], runs["plain"]
     written = sorted(f for f in os.listdir(workdir) if f.startswith("nccl."))
     want = (["nccl.final.ckpt", "nccl.metrics.jsonl"]
@@ -2758,27 +2762,24 @@ def trace_path_phase(workdir, ds, card):
 
     from hello_tpu_torch import telemetry
     from hello_tpu_torch.io.vcf import read_vcf
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline import call
 
     os.makedirs(workdir)
     before = telemetry.tunnel_health(size_mb=64.0)
     out = os.path.join(workdir, "traced.vcf")
     trace_dir = os.path.join(workdir, "trace")
-    rc.reset_launches()
+    counted = telemetry.counts()
     t0 = time.perf_counter()
     call.main(["--bam", ds.bams["illumina"], "--ref", ds.fasta, "--out", out,
                "--model", "illumina", "--precision", "highest",
                "--profile_dir", trace_dir])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    by_route = dict(rc.read_conv_reduce.launches_by_route)
+    got = launched(counted, only="tf32x3")
     after = telemetry.tunnel_health(size_mb=64.0)
     traces = glob.glob(os.path.join(trace_dir, "trace.*.json"))
     if len(traces) != 1:
         raise AssertionError(f"--profile_dir wrote {os.listdir(trace_dir)}")
-    if by_route["tf32x3"] <= 0 or sum(by_route.values()) != by_route["tf32x3"]:
-        raise AssertionError(f"the traced call launched {by_route}")
     worst = compare_records(read_vcf(out), card)
     t0 = time.perf_counter()
     summary = telemetry.trace_summary(traces[0])
@@ -2786,12 +2787,11 @@ def trace_path_phase(workdir, ds, card):
         raise AssertionError(f"the trace holds no kernel: {summary}")
     emit({"phase": "trace_path", "model": "illumina", "seconds": seconds,
           "trace_mb": os.path.getsize(traces[0]) / 1e6,
-          "summary_seconds": time.perf_counter() - t0,
-          "launches_by_route": by_route, "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
+          "summary_seconds": time.perf_counter() - t0, **got,
           "records_equal_main_path": True,
           "max_qual_diff": worst[0], "trace": summary,
           "pcie_before": before, "pcie_after": after})
-    return by_route["tf32x3"]
+    return got["launches_by_route"]["tf32x3"]
 
 
 def dryrun_phase():
@@ -2800,12 +2800,12 @@ def dryrun_phase():
     import numpy as np
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.entry import dryrun_multichip, entry
     from hello_tpu_torch.nn.layers import set_precision
-    from hello_tpu_torch.ops import read_conv as rc
 
     set_precision("highest")
-    rc.reset_launches()
+    counted = telemetry.counts()
     fn, (model, batch) = entry()
     experts, meta = fn(model, batch)
     if not (torch.isfinite(experts).all() and torch.isfinite(meta).all()):
@@ -2813,15 +2813,13 @@ def dryrun_phase():
     t0 = time.perf_counter()
     out = dryrun_multichip(DRYRUN_DEVICES)
     torch.cuda.synchronize()
-    by_route = dict(rc.read_conv_reduce.launches_by_route)
-    if by_route["tf32x3"] <= 0 or sum(by_route.values()) != by_route["tf32x3"]:
-        raise AssertionError(f"the dry run launched {by_route}")
+    got = launched(counted, only="tf32x3")
     emit({"phase": "dryrun", "entry_experts": list(experts.shape),
           "entry_meta": list(meta.shape),
           "entry_max_abs_logit": float(np.abs(experts.cpu().numpy()).max()),
           "dryrun_multichip": out, "seconds": time.perf_counter() - t0,
-          "launches_by_route": by_route, "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)})
-    return by_route["tf32x3"]
+          **got})
+    return got["launches_by_route"]["tf32x3"]
 
 
 VARIANT_CONFIGS = ("illumina_wide", "illumina_addendum", "illumina_layer_norm",
@@ -2997,10 +2995,10 @@ def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
     WIDE_KERNEL_MEDIAN_BAR; then the layer route's read-convolver ms at the kernel phase's shape."""
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.io.vcf import read_vcf
     from hello_tpu_torch.nn import moe
     from hello_tpu_torch.nn.layers import set_precision
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import Scorer, call_genome, load_scorer
 
     os.makedirs(workdir)
@@ -3043,27 +3041,23 @@ def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
                 raise AssertionError(f"{name}: read convolver routes {routes}")
             out_card = os.path.join(workdir, f"{name}_{leg_name}_card.vcf")
             stats = {}
-            rc.reset_launches()
-            moe.reset_layer_route_calls()
+            counted = telemetry.counts()
             t0 = time.perf_counter()
             call_genome(bams, fasta, scorer, out_card, regions=regions,
                         stats=stats)
             torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
-            calls = dict(moe.layer_route_calls)
-            by_width = dict(rc.read_conv_reduce.launches_by_width)
-            if (by_width[2] <= 0 or by_width[1] or any(calls.values())
-                    if wide_kernel else rc.read_conv_reduce.launches
-                    or min(calls[k] for k in routes) <= 0):
-                raise AssertionError(
-                    f"{name} at {leg_name}: read_conv_reduce launched "
-                    f"{rc.read_conv_reduce.launches_by_route} (by width "
-                    f"{by_width}), layer route calls {calls}")
+            got = launched(counted)
+            by_width = got["launches_per_width"]
+            calls = [layer_calls(got, k) for k in routes]
+            if (by_width[2] <= 0 or by_width[1] or any(calls)
+                    if wide_kernel else sum(by_width.values())
+                    or min(calls) <= 0):
+                raise AssertionError(f"{name} at {leg_name}: launched {got}")
             card = read_vcf(out_card)
             leg = {"sites": stats["sites"], "records": len(card),
                    "seconds": card_s,
-                   "windows_per_s": stats["sites"] / card_s,
-                   "layer_route_calls": calls, "launches_by_width": by_width}
+                   "windows_per_s": stats["sites"] / card_s, **got}
             if not wide_kernel:
                 # the CPU's records of the same weights (at bf16 the plain
                 # version's, for both bf16 legs)
@@ -3132,8 +3126,8 @@ def wrapper_path_phase(workdir, ds, card):
     from hello_tpu_torch.nn.convert import init_params
     from hello_tpu_torch.nn.export import save_torch_checkpoint
     from hello_tpu_torch.nn.layers import set_precision
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.nn.moe import create_model
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
 
     os.makedirs(workdir)
@@ -3151,20 +3145,17 @@ def wrapper_path_phase(workdir, ds, card):
         if scorer.read_conv_routes() != {"read_conv0": "tf32x3"}:
             raise AssertionError(f"{kind}: {scorer.read_conv_routes()}")
         out = os.path.join(workdir, f"{kind}.vcf")
-        rc.reset_launches()
+        counted = telemetry.counts()
         t0 = time.perf_counter()
         call_genome([ds.bams["illumina"]], ds.fasta, scorer, out)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        by_route = dict(rc.read_conv_reduce.launches_by_route)
-        if by_route["tf32x3"] <= 0 or sum(by_route.values()) != by_route["tf32x3"]:
-            raise AssertionError(f"{kind}: the call launched {by_route}")
+        got = launched(counted, only="tf32x3")
         decode_steps = []
         worst = compare_records(read_vcf(out), card, decode_steps=decode_steps)
-        total += by_route["tf32x3"]
+        total += got["launches_by_route"]["tf32x3"]
         legs[kind] = {"file_mb": os.path.getsize(path) / 1e6,
-                      "seconds": seconds, "launches_by_route": by_route,
-                      "launches_by_width": dict(rc.read_conv_reduce.launches_by_width),
+                      "seconds": seconds, **got,
                       "records_equal_main_path": True,
                       "max_qual_diff": worst[0],
                       "quals_within_one_decode_step": len(decode_steps)}
@@ -3183,11 +3174,10 @@ def bn_train_path_phase(workdir, shards, ds):
     import numpy as np
     import torch
 
+    from hello_tpu_torch import telemetry
     from hello_tpu_torch.io.vcf import read_vcf
-    from hello_tpu_torch.nn import moe
     from hello_tpu_torch.nn.layers import set_precision
     from hello_tpu_torch.nn.moe import create_model
-    from hello_tpu_torch.ops import read_conv as rc
     from hello_tpu_torch.pipeline.call import call_genome, load_scorer
     from hello_tpu_torch.train.cli import train_from_shards
     from hello_tpu_torch.train.loader import SiteDataset, device_batches
@@ -3244,18 +3234,17 @@ def bn_train_path_phase(workdir, shards, ds):
                              "of the two sub-batch steps")
 
     prefix = os.path.join(workdir, "model")
-    rc.reset_launches()
-    moe.reset_layer_route_calls()
+    counted = telemetry.counts()
     t0 = time.perf_counter()
     trainer = train_from_shards(shards, name, prefix, num_epochs=2,
                                 device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    validation = dict(moe.layer_route_calls)
-    if rc.read_conv_reduce.launches or validation["read_conv0"] <= 0:
-        raise AssertionError(f"{name} training: validation took the layer "
-                             f"route {validation} times, the kernel "
-                             f"{rc.read_conv_reduce.launches_by_route}")
+    validation = launched(counted)
+    if (sum(validation["launches_by_route"].values())
+            or layer_calls(validation, "read_conv0") <= 0):
+        raise AssertionError(f"{name} training: validation launched "
+                             f"{validation}, the layer route only")
     with open(prefix + ".metrics.jsonl") as fh:
         epochs = [json.loads(line) for line in fh]
 
@@ -3266,17 +3255,17 @@ def bn_train_path_phase(workdir, shards, ds):
                              "reach the scorer")
     out_card = os.path.join(workdir, "card.vcf")
     stats_call = {}
-    rc.reset_launches()
-    moe.reset_layer_route_calls()
+    counted = telemetry.counts()
     t0 = time.perf_counter()
     call_genome([ds.bams["illumina"]], ds.fasta, scorer, out_card,
                 stats=stats_call)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    calls = dict(moe.layer_route_calls)
-    if rc.read_conv_reduce.launches or calls["read_conv0"] <= 0:
-        raise AssertionError(f"{name} call: layer route {calls}, kernel "
-                             f"{rc.read_conv_reduce.launches_by_route}")
+    got = launched(counted)
+    if (sum(got["launches_by_route"].values())
+            or layer_calls(got, "read_conv0") <= 0):
+        raise AssertionError(f"{name} call: launched {got}, the layer "
+                             "route only")
     card = read_vcf(out_card)
     cpu, cpu_s = call_on_cpu(name, scorer, [ds.bams["illumina"]], ds.fasta,
                              os.path.join(workdir, "cpu.vcf"))
@@ -3288,11 +3277,11 @@ def bn_train_path_phase(workdir, shards, ds):
           "stats_bar": "rtol 1e-4, atol 1e-5",
           "k2_stats_vs_mean_max_abs": k2_diff,
           "steps": trainer.step, "train_seconds": train_s,
-          "epoch_metrics": epochs, "validation_layer_route_calls": validation,
+          "epoch_metrics": epochs, "validation": validation,
           "sites": stats_call["sites"], "records": len(card),
           "call_seconds": card_s,
           "windows_per_s": stats_call["sites"] / card_s,
-          "layer_route_calls": calls, "cpu_seconds": cpu_s,
+          **got, "cpu_seconds": cpu_s,
           "records_equal": True, "max_qual_diff": worst[0],
           "quals_within_one_decode_step": len(decode_steps),
           "seconds": time.perf_counter() - t_phase})
@@ -3307,30 +3296,26 @@ def demo_path_phase(workdir):
 
     import torch
 
-    from hello_tpu_torch import demo
+    from hello_tpu_torch import demo, telemetry
     from hello_tpu_torch.nn.layers import set_precision
-    from hello_tpu_torch.ops import read_conv as rc
 
     set_precision("highest")
-    rc.reset_launches()
+    counted = telemetry.counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc_ = demo.main(["--outdir", workdir])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    by_route = dict(rc.read_conv_reduce.launches_by_route)
+    got = launched(counted, only="tf32x3")
     text = buf.getvalue()
     summary = json.loads(text[text.index("{"):])
     metrics = summary["metrics"]
-    if (rc_ != 0 or "precision" not in metrics or "recall" not in metrics
-            or by_route["tf32x3"] <= 0
-            or sum(by_route.values()) != by_route["tf32x3"]):
-        raise AssertionError(f"demo: exit {rc_}, {summary}, launches "
-                             f"{by_route}")
+    if rc_ != 0 or "precision" not in metrics or "recall" not in metrics:
+        raise AssertionError(f"demo: exit {rc_}, {summary}")
     emit({"phase": "demo_path", "seconds": seconds, "metrics": metrics,
-          "launches_by_route": by_route, "launches_by_width": dict(rc.read_conv_reduce.launches_by_width)})
-    return by_route["tf32x3"]
+          **got})
+    return got["launches_by_route"]["tf32x3"]
 
 
 def main():
@@ -3411,7 +3396,7 @@ def main():
             "launches_by_path": paths,
             # launches run again by replays of the Scorer's captured graphs,
             # which the wrapper never made (bench_path's pipeline leg)
-            "replayed_launches_by_path":
+            "replays_by_path":
                 {"bench_path": bench_replayed} if route == "bf16" else {},
             # launches that hold the kernel to its plain version, apart
             # from the paths' runs

@@ -227,10 +227,11 @@ def bench_train(sites, iters=10, precision="default", device="cuda",
 
     import torch
 
+    from . import telemetry
     from .nn.layers import set_precision
     from .nn.moe import create_model
     from .ops import bench_read_conv as brc
-    from .ops.read_conv import read_conv_reduce, reset_launches
+    from .ops.read_conv import route_launches
     from .pipeline.batching import (pack_sites, stack_device_batches,
                                     training_dict)
     from .train.trainer import TrainConfig, Trainer
@@ -240,7 +241,7 @@ def bench_train(sites, iters=10, precision="default", device="cuda",
     trainer = Trainer(create_model("hybrid"),
                       TrainConfig(entropy_regularizer=0.1), device=device,
                       params=params)
-    reset_launches()
+    before = telemetry.counts()
     t0 = time.perf_counter()
     batch = pack_sites(sites, hybrid=True)
     dense = stack_device_batches([training_dict(batch)])
@@ -297,7 +298,7 @@ def bench_train(sites, iters=10, precision="default", device="cuda",
                 window = (time.perf_counter() - t0) / iters
                 sustained_s = window if sustained_s is None \
                     else min(sustained_s, window)
-    launched = dict(read_conv_reduce.launches_by_route)
+    launched = route_launches(before)
     if sum(launched.values()):
         raise AssertionError(f"the training leg launched read_conv_reduce "
                              f"{launched}: training runs the layer path")
@@ -537,8 +538,9 @@ def run(argv=None, workdir=None) -> dict:
     ``workdir`` when given)."""
     args = _parser().parse_args(argv)
 
+    from . import telemetry
     from .nn.layers import set_precision
-    from .ops.read_conv import read_conv_reduce, reset_launches
+    from .ops.read_conv import route_launches
     from .pipeline.call import resolve_device
 
     device = resolve_device(args.device)
@@ -546,12 +548,11 @@ def run(argv=None, workdir=None) -> dict:
     legs, outputs = {}, {}
 
     def leg(name, fn, *a, **kw):
-        reset_launches()
+        before = telemetry.counts()
         t0 = time.perf_counter()
         result = fn(*a, **kw)
         legs[name] = {"seconds": time.perf_counter() - t0,
-                      "launches_by_route":
-                          dict(read_conv_reduce.launches_by_route)}
+                      "launches_by_route": route_launches(before)}
         return result
 
     rng = np.random.RandomState(0)

@@ -44,9 +44,9 @@ does not implement to its XLA layers.  The route is decided once per fold,
 by the topology and the precision (``fold_read_convs``), never because a
 kernel failed.  Over packed rows its sum runs in a fixed order
 (``ordered_read_reduce``), so two runs of one batch give the same bits on
-the card, where ``index_add_``'s atomics would not.  ``layer_route_calls``
-and ``layer_route_rows`` count its calls and the rows they computed; given
-a ``stamps`` tensor on the card, ``forward`` brackets each read convolver
+the card, where ``index_add_``'s atomics would not.  Each eval-mode
+reduction is counted in the launch ledger (``telemetry.count``); given a
+``stamps`` tensor on the card, ``forward`` brackets each read convolver
 that the width-1 kernel does not implement (``stamped``), on either route,
 with two stamps of the card's clock (``ops.card_stamp``).
 
@@ -67,6 +67,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from .. import telemetry
 from . import archs
 from . import layers as L
 from .convert import _TORCH_ATTR
@@ -75,26 +76,10 @@ from ..ops.card_stamp import card_stamp
 from ..ops.read_conv import (fold_read_conv_weights, read_conv_reduce,
                              route_for_precision, supports_read_convolver)
 
-#: eval-mode read reductions that took the layer route, per read convolver
-#: (the kernel's launches are ``read_conv_reduce.launches_by_route``)
-layer_route_calls = {"read_conv0": 0, "read_conv1": 0}
-#: the read rows those reductions computed, padding rows included (packed
-#: rows, or the dense ``A*R`` grid)
-layer_route_rows = {"read_conv0": 0, "read_conv1": 0}
-
-
-def reset_layer_route_calls():
-    """Set every count of ``layer_route_calls`` and ``layer_route_rows`` to
-    0."""
-    for counts in (layer_route_calls, layer_route_rows):
-        for name in counts:
-            counts[name] = 0
-
-
 class LayerRoute:
     """``fold_read_convs``' marker for a read convolver no kernel
     implements in the precision's route: its layer modules run under
-    ``torch.no_grad()`` in eval mode (``layer_route_calls`` counts them)."""
+    ``torch.no_grad()`` in eval mode."""
     route = "layers"
 
 
@@ -282,12 +267,13 @@ class MoEAttention(nn.Module):
     def _read_reduce_route(self, batch, k, route):
         """``_read_reduce`` in eval mode on the fold's route: the layer
         route, or ``read_conv_reduce`` with the folded weights."""
+        name = f"read_conv{k}"
+        telemetry.count(("read_conv", name, route.route))
         if isinstance(route, LayerRoute):
-            name = f"read_conv{k}"
-            layer_route_calls[name] += 1
-            layer_route_rows[name] += (
-                batch[f"rows{k}"].shape[0] if f"rows{k}" in batch
-                else batch[f"reads{k}"].shape[0] * batch[f"reads{k}"].shape[1])
+            rows = batch.get(f"rows{k}")
+            telemetry.count(("layer_rows", name),
+                            batch[f"reads{k}"].shape[:2].numel()
+                            if rows is None else rows.shape[0])
             with torch.no_grad():
                 return self._read_reduce_layers(batch, k)
         if f"rows{k}" in batch:

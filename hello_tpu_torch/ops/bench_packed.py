@@ -206,18 +206,18 @@ def measure(model, folded, device_batches, iters, n_sites,
     """Each path timed on the rotated batches -> ({path: windows/s, the
     kernel's launches by route during its timing, its computed rows on
     batch 0}, {path: (experts, meta) on batch 0, from its warm call})."""
-    from .read_conv import read_conv_reduce, reset_launches
+    from .. import telemetry
+    from .read_conv import route_launches
 
     out, outputs = {}, {}
     for path in PATHS:
         batches = path_batches(path, device_batches)
-        reset_launches()
+        before = telemetry.counts()
         rate, outputs[path] = timed(
             lambda b: forward(model, folded, path, b), batches, iters,
             n_sites)
         out[path] = {"windows_per_s": rate,
-                     "launches_by_route":
-                         dict(read_conv_reduce.launches_by_route),
+                     "launches_by_route": route_launches(before),
                      **computed_rows(model, path, batches[0],
                                      rows_per_block)}
     return out, outputs

@@ -23,6 +23,7 @@ import threading
 
 import torch
 
+from .. import telemetry
 from .read_conv import build
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -46,9 +47,8 @@ def _library():
 
 def card_stamp(out: torch.Tensor):
     """Enqueue, on the current stream, the write of the card's global timer
-    (ns) into ``out``: one int64 element of a CUDA tensor (a view is fine).
-    ``card_stamp.launches`` counts the launches from Python (a captured
-    graph's replays run them again without it)."""
+    (ns) into ``out``: one int64 element of a CUDA tensor (a view is fine),
+    counted in ``telemetry.count``'s ledger."""
     if out.device.type != "cuda":
         raise ValueError(f"card_stamp writes a CUDA tensor, not {out.device}")
     if out.dtype != torch.int64 or out.numel() != 1:
@@ -60,7 +60,4 @@ def card_stamp(out: torch.Tensor):
         err = lib.card_stamp_run(out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"card_stamp launch failed: cudaError {err}")
-    card_stamp.launches += 1
-
-
-card_stamp.launches = 0
+    telemetry.count(("card_stamp",))

@@ -71,6 +71,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry
 from ..nn import layers as L
 
 # architecture constants (read_convolver for feature_length=150)
@@ -252,14 +253,11 @@ class FoldedReadConv:
     the 18 ``(W [Co, K*Ci], b [Co])`` pairs (``W`` bf16-valued for the bf16
     route); ``flat`` is the kernel's buffer (per conv the ``pack_conv``
     images, then ``b``, concatenated).  ``width`` is the read convolver's
-    (1, or 2 for the wide one and its kernel).  ``launches`` counts the
-    kernel's launches with these weights (one read convolver's share of
-    ``read_conv_reduce.launches``)."""
+    (1, or 2 for the wide one and its kernel)."""
     convs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     flat: torch.Tensor
     in_channels: int
     route: str = "tf32x3"
-    launches: int = 0
     width: int = 1
 
 
@@ -616,11 +614,9 @@ def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
 
     rows: uint8 [nb, 150, C]; row_allele: int32 [nb] (``A`` marks a padding
     row, dropped); row_valid: float32 [nb].  CUDA tensors launch the route's
-    kernel of the fold's width on the current stream
-    (``read_conv_reduce.launches``, the per-route
-    ``read_conv_reduce.launches_by_route``, the per-width
-    ``read_conv_reduce.launches_by_width`` and ``folded.launches`` count
-    launches); CPU tensors take ``read_conv_reduce_reference``.  The wide
+    kernel of the fold's width on the current stream (counted in
+    ``telemetry.count``'s ledger); CPU tensors take
+    ``read_conv_reduce_reference``.  The wide
     kernel sums each allele's rows in row order, one addition into each
     output value where the allele's rows are consecutive: the same bits on
     every run."""
@@ -651,18 +647,16 @@ def read_conv_reduce(rows: torch.Tensor, row_allele: torch.Tensor,
                 folded.flat.data_ptr(), num_alleles, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"read_conv_reduce launch failed: cudaError {err}")
-    read_conv_reduce.launches += 1
-    read_conv_reduce.launches_by_route[folded.route] += 1
-    read_conv_reduce.launches_by_width[folded.width] += 1
-    folded.launches += 1
+    telemetry.count(("read_conv_reduce", folded.route, folded.width))
     return out
 
 
-def reset_launches():
-    """Set every launch count of ``read_conv_reduce`` to 0."""
-    read_conv_reduce.launches = 0
-    read_conv_reduce.launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
-    read_conv_reduce.launches_by_width = dict.fromkeys(WIDTH_ROUTES, 0)
-
-
-reset_launches()
+def route_launches(before) -> dict:
+    """{route: the kernel's launches} that the launch ledger
+    (``telemetry.count``) has gained since ``before``, one of its
+    ``counts()``; replays not included."""
+    got = dict.fromkeys(ROUTE_IDS, 0)
+    for key, n in (telemetry.counts() - before).items():
+        if key[0] == "read_conv_reduce":
+            got[key[1]] += n
+    return got

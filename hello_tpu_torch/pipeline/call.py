@@ -48,8 +48,7 @@ from ..io.vcf import VcfRecord, make_record, write_vcf
 from ..nn.genotype import decode_batch
 from ..nn import layers as nn_layers
 from ..nn.archs import NAMED_CONFIGS
-from ..nn.moe import MoEAttention, create_model, layer_route_calls, stamped
-from ..ops.read_conv import ROUTE_IDS, WIDTH_ROUTES
+from ..nn.moe import MoEAttention, create_model, stamped
 from . import graphs
 from .batching import PaddedBatch, SiteWork, group_sites_for_batching, pack_sites
 from .candidates import generate_sites
@@ -159,12 +158,9 @@ class Scorer:
     On the card each position replays the forward of a batch shape it has
     met before as a captured CUDA graph (``pipeline/graphs.py``: a shape's
     first batch runs eagerly, its second is captured); ``graph_counts``
-    counts the batches run ``eager``, ``captured`` and ``replayed``.  The
-    kernel's and the layer route's counters count only what their Python
-    code launches (eager forwards and captures); the launches that later
-    replays run again are ``replayed_launches_by_route``,
-    ``replayed_launches_by_width``, ``replayed_layer_route_calls`` and
-    ``replayed_layer_route_rows``.  The CPU runs every batch eagerly.
+    counts the batches run ``eager``, ``captured`` and ``replayed``, and
+    each replay counts its graph's launches in the launch ledger
+    (``telemetry.count``).  The CPU runs every batch eagerly.
 
     On the card a forward with a read convolver that the width-1 kernel
     does not implement (``nn.moe.stamped``: the layer route, or the wide
@@ -219,10 +215,6 @@ class Scorer:
         # each position's captured forwards, by batch shape
         self._graphs = [graphs.GraphCache() for _ in self.devices]
         self.graph_counts = {"eager": 0, "captured": 0, "replayed": 0}
-        self.replayed_launches_by_route = dict.fromkeys(ROUTE_IDS, 0)
-        self.replayed_launches_by_width = dict.fromkeys(WIDTH_ROUTES, 0)
-        self.replayed_layer_route_calls = dict.fromkeys(layer_route_calls, 0)
-        self.replayed_layer_route_rows = dict.fromkeys(layer_route_calls, 0)
         self._refresh(0)
 
     @property
@@ -349,14 +341,7 @@ class Scorer:
             with telemetry.stage("scorer.replay", key=seq):
                 graph.graph.replay()
             self.graph_counts["replayed"] += 1
-            for route, n in graph.launches.items():
-                self.replayed_launches_by_route[route] += n
-            for width, n in graph.launches_by_width.items():
-                self.replayed_launches_by_width[width] += n
-            for name, n in graph.layer_route_calls.items():
-                self.replayed_layer_route_calls[name] += n
-            for name, n in graph.layer_route_rows.items():
-                self.replayed_layer_route_rows[name] += n
+            telemetry.count_replay(graph.counts)
         return graph.outputs
 
     def score_async(self, batch: PaddedBatch, decode: bool = False) -> Dispatched:

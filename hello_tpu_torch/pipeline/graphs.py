@@ -32,23 +32,15 @@ A position's graphs share one memory pool: they replay on one stream, one at
 a time, and each batch's outputs are copied to the host before the next
 replay is enqueued, so one graph's scratch may reuse another's.
 
-The launch counters of the kernel's wrapper (``read_conv_reduce.launches``,
-``launches_by_route``, ``launches_by_width``, ``FoldedReadConv.launches``)
-and of the layer route (``moe.layer_route_calls``, ``moe.layer_route_rows``)
-count what the Python code launches: the eager forwards, and the forward a
-capture records into its graph (which that batch's first replay runs).  A
-later replay runs the graph's launches again without the wrappers:
-``Graph.launches``, ``Graph.launches_by_width``,
-``Graph.layer_route_calls`` and ``Graph.layer_route_rows`` hold what its
-capture added, and the Scorer adds them to its own
-``replayed_launches_by_route``, ``replayed_launches_by_width``,
-``replayed_layer_route_calls`` and ``replayed_layer_route_rows`` at each
-replay.
+A capture keeps what the launch ledger (``telemetry.count``) gained over
+it, ``Graph.counts``, which the Scorer counts again at each later replay.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional
+
+from .. import telemetry
 
 #: graphs each position holds; past them, new shapes run eagerly
 MAX_GRAPHS = 16
@@ -63,40 +55,20 @@ def graph_key(arrays: Mapping, generation: int, precision: str,
                          for name, a in arrays.items())))
 
 
-def launch_counts():
-    """(the kernel's launches by route, the layer route's calls and rows by
-    read convolver, the kernel's launches by width), as their counters read
-    now."""
-    from ..nn import moe
-    from ..ops.read_conv import read_conv_reduce as rc
-
-    return (dict(rc.launches_by_route), dict(moe.layer_route_calls),
-            dict(moe.layer_route_rows), dict(rc.launches_by_width))
-
-
-def _added(after: Mapping, before: Mapping) -> Dict[str, int]:
-    return {k: n - before.get(k, 0) for k, n in after.items()
-            if n != before.get(k, 0)}
-
-
 class Graph:
     """One key's captured forward: its static input buffers (each batch's
-    upload lands in them), the graph, its static outputs, and what its
-    capture added to the kernel's launches by route and by width and to
-    the layer route's calls and rows.  Empty until ``GraphCache.capture``."""
+    upload lands in them), the graph, its static outputs, and what the
+    launch ledger gained over its capture.  Empty until
+    ``GraphCache.capture``."""
 
-    __slots__ = ("key", "inputs", "graph", "outputs", "launches",
-                 "layer_route_calls", "layer_route_rows", "launches_by_width")
+    __slots__ = ("key", "inputs", "graph", "outputs", "counts")
 
     def __init__(self, key: tuple):
         self.key = key
         self.inputs: Dict[str, object] = {}
         self.graph = None
         self.outputs = None
-        self.launches: Dict[str, int] = {}
-        self.layer_route_calls: Dict[str, int] = {}
-        self.layer_route_rows: Dict[str, int] = {}
-        self.launches_by_width: Dict[int, int] = {}
+        self.counts: Mapping[tuple, int] = {}
 
 
 class GraphCache:
@@ -153,7 +125,7 @@ class GraphCache:
             self.stream = torch.cuda.Stream(device)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = launch_counts()
+        before = telemetry.counts()
         cuda_graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self.stream):
             cuda_graph.capture_begin(pool=self.pool,
@@ -162,8 +134,7 @@ class GraphCache:
                 outputs = forward()
             finally:
                 cuda_graph.capture_end()
-        (graph.launches, graph.layer_route_calls, graph.layer_route_rows,
-         graph.launches_by_width) = map(_added, launch_counts(), before)
+        graph.counts = telemetry.counts() - before
         graph.graph, graph.outputs = cuda_graph, outputs
         self.graphs[graph.key] = graph
         cuda_graph.replay()

@@ -45,6 +45,7 @@ def _call(ds, platforms, model_name, precision, kwargs, device):
     the seconds taken and the read-conv kernel's launches per route."""
     import torch
 
+    from .. import telemetry
     from ..io.fasta import FastaFile
     from ..nn import layers
     from ..ops import read_conv as rc
@@ -55,7 +56,7 @@ def _call(ds, platforms, model_name, precision, kwargs, device):
     ref = FastaFile(ds.fasta)
     bams = [ds.bams[p] for p in platforms]
     stats = {}
-    rc.reset_launches()
+    before = telemetry.counts()
     t0 = time.perf_counter()
     records = call_region(bams, ref, ds.chromosome, 0,
                           ref.length(ds.chromosome), scorer,
@@ -64,7 +65,7 @@ def _call(ds, platforms, model_name, precision, kwargs, device):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (records, stats.get("sites", 0), wall,
-            dict(rc.read_conv_reduce.launches_by_route))
+            rc.route_launches(before))
 
 
 def compare(rec_hi, rec_lo):

@@ -24,8 +24,8 @@ import socket
 import statistics
 import threading
 import time
-from collections import defaultdict, deque
-from typing import Any, Dict, List, NamedTuple, Optional
+from collections import Counter, defaultdict, deque
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -34,6 +34,8 @@ logger = logging.getLogger(__name__)
 _lock = threading.Lock()
 _totals: Dict[str, float] = defaultdict(float)
 _counts: Dict[str, int] = defaultdict(int)
+#: the launch ledger (``count``)
+_ledger: Counter = Counter()
 
 #: span records the ring holds; the oldest go first
 RING_LEN = 65_536
@@ -171,6 +173,46 @@ def add(name: str, seconds: float, calls: int = 1):
     with _lock:
         _totals[name] += seconds
         _counts[name] += calls
+
+
+def count(key: tuple, n: int = 1):
+    """Add ``n`` to the launch ledger's ``key``, a tuple whose first item
+    names the launcher:
+
+    * ``("read_conv_reduce", route, width)``: a launch of the read
+      convolver kernel (``ops.read_conv.read_conv_reduce`` on CUDA tensors;
+      its plain version on the CPU counts nothing);
+    * ``("card_stamp",)``: a launch of ``ops.card_stamp``;
+    * ``("read_conv", net, route)``: an eval-mode reduction of read
+      convolver ``net`` (``nn.moe``), on the CPU too; ``route`` is its
+      fold's kernel route, or ``"layers"`` for the layer route;
+    * ``("layer_rows", net)``: the read rows a layer-route reduction
+      computed, padding rows included (packed rows, or the dense ``A*R``
+      grid).
+
+    These count what the Python code launches: eager forwards, and the
+    forward a capture records into a CUDA graph (which that batch's first
+    replay runs).  A later replay runs the graph's launches again without
+    that code, so the Scorer adds what the ledger gained over the capture
+    once more at each replay, each key under ``("replayed",) + key``
+    (``count_replay``).  A reader takes the ledger's change over what it
+    measures, ``counts() - before``; nothing resets it."""
+    with _lock:
+        _ledger[key] += n
+
+
+def count_replay(captured: Mapping[tuple, int]):
+    """Count a replay of a captured graph: ``captured``, what the ledger
+    gained over its capture, again under the ``"replayed"`` prefix."""
+    with _lock:
+        for key, n in captured.items():
+            _ledger[("replayed",) + key] += n
+
+
+def counts() -> Counter:
+    """A copy of the launch ledger (``count``)."""
+    with _lock:
+        return Counter(_ledger)
 
 
 def report() -> Dict[str, dict]:

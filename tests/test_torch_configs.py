@@ -36,6 +36,7 @@ from hello_tpu.nn import moe as jax_moe  # noqa: E402
 from hello_tpu.nn.export import save_torch_checkpoint  # noqa: E402
 from hello_tpu.ops.read_conv import supports_network  # noqa: E402
 from hello_tpu.pipeline import call as jax_call  # noqa: E402
+from hello_tpu_torch import telemetry  # noqa: E402
 from hello_tpu_torch.nn import archs, moe  # noqa: E402
 from hello_tpu_torch.nn.convert import init_params  # noqa: E402
 from hello_tpu_torch.pipeline import call  # noqa: E402
@@ -110,11 +111,12 @@ def test_cli_calls_as_hello_tpu_calls(dataset, name, tmp_path):
     path = str(tmp_path / f"{name}.pt")
     save_torch_checkpoint(path, scorer.model, scorer.params, scorer.state)
     out = str(tmp_path / "port.vcf")
-    moe.reset_layer_route_calls()
+    before = telemetry.counts()
     call.main(["--bam", dataset.bams["illumina"], "--ref", dataset.fasta,
                "--out", out, "--model", name, "--checkpoint", path,
                "--device", "cpu", "--precision", "highest"])
-    assert moe.layer_route_calls["read_conv0"] > 0
+    assert (telemetry.counts() - before)[
+        ("read_conv", "read_conv0", "layers")] > 0
     got = read_vcf(out)
     assert len(got) == len(want) >= 20
     for a, b in zip(got, want):

@@ -5,9 +5,9 @@
   wire and on the dense batch, against the benchmark's plain fp32
   reference (``h100_bench/reference/model.py``: its forward and
   ``best_pairs``) on the benchmark's seeded weights and sites.
-* ``moe.layer_route_rows`` counts the rows each eager batch computed,
-  padding included; the CPU never replays, so the Scorer's replayed count
-  stays 0 (the card tests hold the replays).
+* The launch ledger counts the rows each eager batch computed, padding
+  included; the CPU never replays, so no ``"replayed"`` key moves (the card
+  tests hold the replays).
 * The layer route's per-allele sum over packed rows is the same function
   as ``packed_read_reduce`` and gives the same bits whatever the order of
   the rows of different alleles.
@@ -26,7 +26,7 @@ from h100_bench import generator, weights
 from h100_bench.loops import score as bench_score
 from h100_bench.reference import model as ref
 from hello_tpu_torch import telemetry
-from hello_tpu_torch.nn import layers, moe
+from hello_tpu_torch.nn import layers
 from hello_tpu_torch.nn.moe import (create_model, ordered_read_reduce,
                                     packed_read_reduce)
 from hello_tpu_torch.pipeline.batching import pack_sites
@@ -46,15 +46,6 @@ def highest():
     yield
     layers.set_precision("highest")
     torch.set_num_threads(threads)
-
-
-@pytest.fixture
-def counters():
-    saved = dict(moe.layer_route_calls), dict(moe.layer_route_rows)
-    moe.reset_layer_route_calls()
-    yield
-    moe.layer_route_calls.update(saved[0])
-    moe.layer_route_rows.update(saved[1])
 
 
 def _setup(seed=SEED):
@@ -98,10 +89,11 @@ def test_decoded_answers_match_the_plain_reference(wire):
 
 
 @pytest.mark.parametrize("wire", ["packed", "dense"])
-def test_layer_route_rows_count_the_eager_rows(counters, wire):
+def test_layer_route_rows_count_the_eager_rows(wire):
     _, _, model, batch = _setup()
     scorer = Scorer(model, device="cpu", packed_conv=wire == "packed")
     inputs = _inputs(batch, wire)
+    before = telemetry.counts()
     for _ in range(3):
         scorer.finalize(scorer.score_async(inputs, decode=True))
     if wire == "packed":
@@ -110,11 +102,10 @@ def test_layer_route_rows_count_the_eager_rows(counters, wire):
     else:
         A, R = inputs.device_dict()["read_mask0"].shape
         rows = A * R                               # the dense A*R grid
-    assert moe.layer_route_calls == {"read_conv0": 3, "read_conv1": 0}
-    assert moe.layer_route_rows == {"read_conv0": 3 * rows, "read_conv1": 0}
+    assert telemetry.counts() - before == {
+        ("read_conv", "read_conv0", "layers"): 3,
+        ("layer_rows", "read_conv0"): 3 * rows}
     assert scorer.graph_counts == {"eager": 3, "captured": 0, "replayed": 0}
-    assert scorer.replayed_layer_route_rows == {"read_conv0": 0,
-                                                "read_conv1": 0}
 
 
 def test_ordered_sum_is_the_segment_sum_in_a_fixed_order():

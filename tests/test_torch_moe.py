@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from hello_tpu.nn import layers as jax_layers
 from hello_tpu.nn import moe as jax_moe
+from hello_tpu_torch import telemetry
 from hello_tpu_torch.nn import archs, moe
 from hello_tpu_torch.nn.convert import state_dict_from_jax
 
@@ -214,10 +215,11 @@ def test_hybrid_experts_and_meta_match_jax(hybrid_models, rng, layout, case):
 
 def test_fold_read_convs_covers_both_platforms():
     tm = moe.create_model("hybrid")
+    before = telemetry.counts()
     folded = tm.fold_read_convs()
     assert sorted(folded) == ["read_conv0", "read_conv1"]
     assert folded["read_conv0"] is not folded["read_conv1"]
-    assert folded["read_conv0"].launches == folded["read_conv1"].launches == 0
+    assert telemetry.counts() == before         # folding launches nothing
 
 
 @pytest.mark.parametrize("name", ["illumina_wide", "illumina_addendum",
@@ -246,12 +248,14 @@ def test_unported_configs_raise(rng, name):
                  (_dense_batch if layout == "dense" else _packed_batch)(rng))
         want, _ = jm.apply(params, state,
                            {k: jnp.asarray(v) for k, v in batch.items()})
-        moe.reset_layer_route_calls()
+        before = telemetry.counts()
         with torch.no_grad():
             got = tm({k: torch.from_numpy(v) for k, v in batch.items()},
                      folded=folded)
-        assert moe.layer_route_calls == {"read_conv0": 1,
-                                         "read_conv1": int(tm.hybrid)}
+        calls = {k: n for k, n in (telemetry.counts() - before).items()
+                 if k[0] == "read_conv"}
+        assert calls == {("read_conv", f"read_conv{k}", "layers"): 1
+                         for k in range(1 + tm.hybrid)}
         np.testing.assert_allclose(got["experts"].numpy(),
                                    np.asarray(want["experts"]),
                                    rtol=1e-4, atol=1e-4)

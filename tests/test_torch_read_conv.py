@@ -20,6 +20,7 @@ from hello_tpu.nn import layers as jax_layers
 from hello_tpu.nn.moe import create_model as jax_create_model
 from hello_tpu.nn.moe import packed_read_reduce as jax_packed_read_reduce
 from hello_tpu.ops import read_conv as jax_rc
+from hello_tpu_torch import telemetry
 from hello_tpu_torch.nn import moe
 from hello_tpu_torch.nn.convert import state_dict_from_jax
 from hello_tpu_torch.nn.moe import create_model
@@ -171,7 +172,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
     _, _, tm = _pair("illumina", 3)
     rows, row_allele, row_valid = _packed_rows(rng, 2, [1, 1], 6, n_pad=1)
     folded = rc.fold_read_conv_weights(tm.read_convolver0)
-    before = rc.read_conv_reduce.launches
+    before = telemetry.counts()
     got = rc.read_conv_reduce(torch.from_numpy(rows),
                               torch.from_numpy(row_allele),
                               torch.from_numpy(row_valid), folded, 2)
@@ -179,7 +180,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
                                          torch.from_numpy(row_allele),
                                          torch.from_numpy(row_valid),
                                          folded, 2)
-    assert rc.read_conv_reduce.launches == before
+    assert telemetry.counts() == before
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

@@ -15,7 +15,7 @@ on the CPU.
   version with fp32 activations, or with bf16 rounding that truncates,
   fails that bar.  Its per-allele sum is ``ordered_read_reduce``'s; every
   conv it runs is read by the F3 tool.
-* The launch counters keep the widths apart; the stamp rule: every read
+* The launch ledger keeps the widths apart; the stamp rule: every read
   convolver the width-1 kernel does not implement is stamped, the wide
   kernel's too, and CPU batches carry no stamps.
 
@@ -293,19 +293,16 @@ def test_every_conv_of_the_wide_plain_version_is_read_against_float64():
     assert 0 < max(errors) < 2.0 ** -20
 
 
-# ------------------------------------------------------ counters and stamps
+# --------------------------------------------------------- ledger and stamps
 
 
-def test_the_counters_keep_the_widths_apart(monkeypatch):
-    rc_ = rc.read_conv_reduce
-    monkeypatch.setattr(rc_, "launches_by_width", {1: 5, 2: 7})
-    monkeypatch.setattr(rc_, "launches_by_route",
-                        {"tf32x3": 0, "tf32": 0, "bf16": 12})
-    counts = graphs.launch_counts()
-    assert counts[0] == {"tf32x3": 0, "tf32": 0, "bf16": 12}
-    assert counts[3] == {1: 5, 2: 7}
-    rc.reset_launches()
-    assert rc_.launches_by_width == {1: 0, 2: 0}
+def test_the_counters_keep_the_widths_apart():
+    before = telemetry.counts()
+    telemetry.count(("read_conv_reduce", "bf16", 1), 5)
+    telemetry.count(("read_conv_reduce", "bf16", 2), 7)
+    assert rc.route_launches(before) == {"tf32x3": 0, "tf32": 0, "bf16": 12}
+    assert telemetry.counts() - before == {
+        ("read_conv_reduce", "bf16", 1): 5, ("read_conv_reduce", "bf16", 2): 7}
     # a replay adds what its capture launched, width by width
     layers.set_precision("bf16")
     scorer = Scorer(_model("illumina_wide"), device="cpu")
@@ -316,12 +313,13 @@ def test_the_counters_keep_the_widths_apart(monkeypatch):
 
     graph = graphs.Graph("k")
     graph.graph, graph.outputs = _Replay(), {"experts": torch.zeros(1)}
-    graph.launches, graph.launches_by_width = {"bf16": 1}, {2: 1}
+    graph.counts = {("read_conv_reduce", "bf16", 2): 1}
+    before = telemetry.counts()
     for seq in range(3):
         scorer._launch(0, None, None, True, graph, seq)
-    assert scorer.replayed_launches_by_width == {1: 0, 2: 3}
-    assert scorer.replayed_launches_by_route == {"tf32x3": 0, "tf32": 0,
-                                                 "bf16": 3}
+    assert telemetry.counts() - before == {
+        ("replayed", "read_conv_reduce", "bf16", 2): 3}
+    assert rc.route_launches(before) == {"tf32x3": 0, "tf32": 0, "bf16": 0}
 
 
 def _stamp_calls(model, folded, monkeypatch):
@@ -368,11 +366,13 @@ def test_cpu_batches_of_the_wide_kernel_carry_no_stamps():
     sites = [s.__class__(**{**s.__dict__, "tensors1": None}) for s in sites]
     wire = pack_sites_wire(encode_chunk_sites(sites), hybrid=False)
     t0 = telemetry.now_ns()
-    before = moe.layer_route_calls["read_conv0"]
+    before = telemetry.counts()
     got = scorer.score_async(wire, decode=True)
     assert "read_conv_stamps" not in got.out
     scorer.finalize(got)
-    assert moe.layer_route_calls["read_conv0"] == before
+    # the plain version of the wide kernel's route: no launch, no stamp
+    assert telemetry.counts() - before == {
+        ("read_conv", "read_conv0", "bf16"): 1}
     names = {s.name for s in telemetry.spans(t0, telemetry.now_ns())}
     assert "scorer.launch" in names
     assert "scorer.read_conv_layers" not in names

@@ -11,8 +11,9 @@ packed as the coded wire ships them, and the dense grid.
 * Two eager runs give identical bits; a replayed batch of the Scorer is
   bit-equal to its eager ``_forward``; the ``scorer.read_conv_layers``
   records of replays agree with eager ones; each eager batch and each
-  replay launches the width-2 kernel once (``launches_by_width``,
-  ``replayed_launches_by_width``) between one pair of card stamps.
+  replay launches the width-2 kernel once (the launch ledger's
+  ``read_conv_reduce`` key and its ``"replayed"`` twin) between one pair of
+  card stamps.
 
 Marked ``card``: each test skips without a card.  Imports no JAX: run with
 ``python -m pytest --noconftest tests/test_torch_read_conv_wide_card.py``.
@@ -27,7 +28,7 @@ from hello_tpu_torch import telemetry
 from hello_tpu_torch.nn import layers, moe
 from hello_tpu_torch.nn.convert import init_params
 from hello_tpu_torch.nn.moe import create_model
-from hello_tpu_torch.ops import card_stamp, read_conv as rc
+from hello_tpu_torch.ops import read_conv as rc
 from hello_tpu_torch.pipeline import graphs
 from hello_tpu_torch.pipeline.call import Scorer
 from hello_tpu_torch.pipeline.compact import (encode_chunk_sites,
@@ -226,25 +227,23 @@ def test_each_batch_and_replay_launches_the_wide_kernel_once(card):
 
     scorer = Scorer(_model(), device=card)
     wire = _wire(SEED + 4, 64)
-    by_width = rc.read_conv_reduce.launches_by_width
-    before = dict(by_width)
+    once = {("read_conv_reduce", "bf16", 2): 1, ("card_stamp",): 2,
+            ("read_conv", "read_conv0", "bf16"): 1}
+    before = telemetry.counts()
     scorer.finalize(scorer.score_async(wire, decode=True))      # eager
-    assert by_width[2] - before[2] == 1 and by_width[1] == before[1]
+    assert telemetry.counts() - before == once
+    before = telemetry.counts()
     scorer.finalize(scorer.score_async(wire, decode=True))      # capture
-    assert by_width[2] - before[2] == 2
-    wrappers = (dict(by_width), card_stamp.card_stamp.launches,
-                dict(moe.layer_route_calls))
+    assert telemetry.counts() - before == once
+    before = telemetry.counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             scorer.finalize(scorer.score_async(wire, decode=True))
         torch.cuda.synchronize(card)
     assert scorer.graph_counts == {"eager": 1, "captured": 1, "replayed": 2}
-    assert scorer.replayed_launches_by_width == {1: 0, 2: 2}
-    assert scorer.replayed_launches_by_route == {"tf32x3": 0, "tf32": 0,
-                                                 "bf16": 2}
     # the wrappers count nothing for a replay; the layer route never runs
-    assert (dict(by_width), card_stamp.card_stamp.launches,
-            dict(moe.layer_route_calls)) == wrappers
+    assert telemetry.counts() - before == {
+        ("replayed",) + k: 2 * n for k, n in once.items()}
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("read_conv_reduce_wide" in n for n in kernels) == 2, kernels

@@ -4,9 +4,10 @@ On the CPU: the Scorer never captures and counts every batch ``eager``;
 ``graph_key`` separates every property a captured forward depends on;
 ``GraphCache`` runs a key eagerly, then captures, then replays, drops its
 graphs with a new generation, and once it holds ``MAX_GRAPHS`` runs new
-keys eagerly, evicting none and keeping no sighting; a replay adds what its
-capture launched to the Scorer's replayed counts and leaves the wrappers'
-counters alone.
+keys eagerly, evicting none and keeping no sighting; a replay counts what
+its capture launched again in the launch ledger under ``"replayed"`` and
+leaves the unprefixed keys alone; ``graphs.py`` reads the ledger and imports
+nothing from ``nn`` or ``ops``.
 
 On the card (marked ``card``; each skips without one): for ``hybrid``,
 ``illumina``, ``illumina_wide`` (pinned to the layer route, whose per-allele
@@ -19,10 +20,10 @@ per allele, so that the read convolver kernel's per-allele atomics add at
 most two terms into each output and the eager answer itself is the same
 on every run); a
 ``load_state_dict`` between batches drops the graphs and the answers
-follow the new weights; the wrappers' launch counters count the eager and
-captured batches and the Scorer's replayed counts the replays, together what
-eager runs of the same batches count, on the kernel route (by route and by
-width) and the layer route; a thread that finalizes earlier batches while a capture runs, as
+follow the new weights; the ledger's keys count the eager and captured
+batches and their ``"replayed"`` twins the replays, together what eager
+runs of the same batches count, on the kernel route (by route and by width)
+and the layer route; a thread that finalizes earlier batches while a capture runs, as
 ``call_parallel``'s drainer does, neither breaks the capture nor changes an
 answer; a capture returns while the card is still busy with earlier
 work; the card's stamps around ``illumina_wide``'s layer-route read
@@ -30,17 +31,20 @@ convolver (pinned; tests/test_torch_read_conv_wide_card.py holds the wide
 kernel's) give replayed batches ``scorer.read_conv_layers`` records that
 agree with eager ones of the same shape; and one replay under the
 profiler runs one pair of stamp kernels for the read convolver while the
-Scorer's replayed ``layer_route_rows`` grow by what an eager batch of the
-same shape computes; the kernel route (``hybrid``, ``illumina``) ships no
+ledger's replayed layer rows grow by what an eager batch of the same shape
+computes; the kernel route (``hybrid``, ``illumina``) ships no
 stamps and records no ``scorer.read_conv_layers``.
 
 Imports no JAX: on the card, run it alone with ``python -m pytest
 --noconftest tests/test_torch_scorer_graphs.py``.
 """
 
+import ast
 import dataclasses
+import re
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -52,7 +56,6 @@ from hello_tpu_torch.nn import layers
 from hello_tpu_torch.nn import moe
 from hello_tpu_torch.nn.convert import init_params
 from hello_tpu_torch.nn.moe import create_model
-from hello_tpu_torch.ops import card_stamp, read_conv
 from hello_tpu_torch.pipeline import graphs
 from hello_tpu_torch.pipeline.batching import pack_sites
 from hello_tpu_torch.pipeline.call import Scorer
@@ -79,23 +82,6 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs")
     return torch.device("cuda", 0)
-
-
-@pytest.fixture
-def counters():
-    """Leave the process's launch counters as the test found them."""
-    rc = read_conv.read_conv_reduce
-    by_route = rc.launches_by_route
-    saved = (rc.launches, dict(by_route), dict(moe.layer_route_calls),
-             dict(moe.layer_route_rows))
-    yield
-    rc.launches, rc.launches_by_route = saved[0], by_route
-    by_route.clear()
-    by_route.update(saved[1])
-    moe.layer_route_calls.clear()
-    moe.layer_route_calls.update(saved[2])
-    moe.layer_route_rows.clear()
-    moe.layer_route_rows.update(saved[3])
 
 
 def _model(name, seed=0):
@@ -230,33 +216,45 @@ class _Replay:
         self.replays += 1
 
 
-def test_a_replay_counts_apart_from_the_wrappers(counters):
-    rc = read_conv.read_conv_reduce
+def test_a_replay_counts_apart_from_the_wrappers():
     scorer = Scorer(_model("illumina"), device="cpu")
     graph = graphs.Graph("k")
     graph.graph, graph.outputs = _Replay(), {"experts": torch.zeros(1)}
-    graph.launches = {"bf16": 2}
-    graph.layer_route_calls = {"read_conv1": 1}
-    wrappers = graphs.launch_counts()
+    graph.counts = {("read_conv_reduce", "bf16", 1): 2}
+    before = telemetry.counts()
     for seq in range(3):
         assert scorer._launch(0, None, None, True, graph, seq) is \
             graph.outputs
     assert graph.graph.replays == 3
     assert scorer.graph_counts == {"eager": 0, "captured": 0, "replayed": 3}
-    assert scorer.replayed_launches_by_route == {"tf32x3": 0, "tf32": 0,
-                                                 "bf16": 6}
-    assert scorer.replayed_layer_route_calls == {"read_conv0": 0,
-                                                 "read_conv1": 3}
-    assert graphs.launch_counts() == wrappers
+    # exactly the replayed twin moves; the unprefixed keys do not
+    assert telemetry.counts() - before == {
+        ("replayed", "read_conv_reduce", "bf16", 1): 6}
 
 
-def test_launch_counts_read_both_counters(counters):
-    before = graphs.launch_counts()
-    read_conv.read_conv_reduce.launches_by_route["bf16"] += 2
-    moe.layer_route_calls["read_conv0"] += 1
-    after = graphs.launch_counts()
-    assert graphs._added(after[0], before[0]) == {"bf16": 2}
-    assert graphs._added(after[1], before[1]) == {"read_conv0": 1}
+def test_launch_counts_read_both_counters():
+    """A capture's delta of the ledger holds the kernel's and the layer
+    route's keys alike, which ``graphs.py`` reads through ``telemetry``
+    alone: it imports nothing from ``nn`` or ``ops``."""
+    before = telemetry.counts()
+    telemetry.count(("read_conv_reduce", "bf16", 1), 2)
+    telemetry.count(("read_conv", "read_conv0", "layers"))
+    assert telemetry.counts() - before == {
+        ("read_conv_reduce", "bf16", 1): 2,
+        ("read_conv", "read_conv0", "layers"): 1}
+    with open(graphs.__file__) as f:
+        tree = ast.parse(f.read())
+    modules = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            sep = "." if node.module else ""
+            modules += [base] + [base + sep + a.name for a in node.names]
+    assert "..telemetry" in modules
+    assert not [m for m in modules if re.match(
+        r"(\.\.|hello_tpu_torch\.)(nn|ops)\b", m)], modules
 
 
 # ---------------------------------------------------------------- the card
@@ -334,56 +332,45 @@ def test_load_state_dict_drops_the_graphs(card):
         _equal(got, want)
 
 
-def _counts(scorer):
-    """The wrappers' counters and the Scorer's replayed counts; by width
-    last."""
-    rc = read_conv.read_conv_reduce
-    return (rc.launches, dict(rc.launches_by_route),
-            dict(moe.layer_route_calls),
-            {k: getattr(f, "launches", None) for k, f in scorer.folded.items()},
-            dict(scorer.replayed_launches_by_route),
-            dict(scorer.replayed_layer_route_calls),
-            dict(rc.launches_by_width),
-            dict(scorer.replayed_launches_by_width))
+def _replayed(counts):
+    """``counts``' keys as a replay counts them."""
+    return {("replayed",) + k: n for k, n in counts.items()}
 
 
-def _diff(after, before):
-    return tuple(a - b if isinstance(a, int) else
-                 {k: None if n is None else n - b[k] for k, n in a.items()}
-                 for a, b in zip(after, before))
+def _sum(counts, launcher):
+    return sum(n for k, n in counts.items() if k[0] == launcher)
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("name", ["hybrid", "illumina_wide",
                                   "illumina_wide_kernel"])
 def test_launch_counters_count_eager_and_replayed_launches_apart(
-        card, counters, name):
+        card, name):
     layers.set_precision("bf16")
     scorer = Scorer(_model(name), device=card)
     hybrid = scorer.model.hybrid
     batches = [_wire(hybrid, shape, seed) for shape in SHAPES
                for seed in (1, 2, 3, 4)]
-    before = _counts(scorer)
+    before = telemetry.counts()
     for b in batches[:2] + batches[4:6]:     # what the wrappers launch
         _eager(scorer, b, True, card)
-    launched = _diff(_counts(scorer), before)
+    launched = telemetry.counts() - before
     for b in batches[2:4] + batches[6:]:     # what the replays run again
         _eager(scorer, b, True, card)
-    eager = _diff(_counts(scorer), before)
-    before = _counts(scorer)
+    eager = telemetry.counts() - before
+    before = telemetry.counts()
     for b in batches:
         scorer.finalize(scorer.score_async(b, decode=True))
     # per shape: eager, captured, replayed, replayed
     assert scorer.graph_counts == {"eager": 2, "captured": 2, "replayed": 4}
-    got = _diff(_counts(scorer), before)
-    assert got[:4] == launched[:4]
-    assert got[4] == {r: n - launched[1][r] for r, n in eager[1].items()}
-    assert got[5] == {k: n - launched[2][k] for k, n in eager[2].items()}
-    assert got[6] == launched[6]
-    assert got[7] == {w: n - launched[6][w] for w, n in eager[6].items()}
-    assert eager[0] + sum(eager[2].values()) == len(batches) * (
-        2 if hybrid else 1)
-    assert sum(eager[6].values()) == eager[0]
+    got = telemetry.counts() - before
+    # the unprefixed keys what eager and captured batches launched, by
+    # route, width and read convolver; the replayed ones the rest
+    assert got == launched + Counter(_replayed(eager - launched))
+    reductions = {k: n for k, n in eager.items() if k[0] == "read_conv"}
+    assert sum(reductions.values()) == len(batches) * (2 if hybrid else 1)
+    assert _sum(eager, "read_conv_reduce") == sum(
+        n for k, n in reductions.items() if k[2] != "layers")
 
 
 @pytest.mark.card
@@ -492,20 +479,20 @@ def test_replayed_stamps_agree_with_eager_ones(card, monkeypatch):
 
 
 @pytest.mark.card
-def test_a_replay_stamps_its_layer_route_read_convolver_once(card, counters):
+def test_a_replay_stamps_its_layer_route_read_convolver_once(card):
     from torch.profiler import ProfilerActivity, profile
 
     layers.set_precision("bf16")
     scorer = Scorer(_model("illumina_wide"), device=card)
     batch = _wire(False, SHAPES[1], 1)
-    before = dict(moe.layer_route_rows)
+    before = telemetry.counts()
     scorer.finalize(scorer.score_async(batch, decode=True))      # eager
-    eager_rows = {k: n - before[k] for k, n in moe.layer_route_rows.items()}
-    assert eager_rows == {"read_conv0": batch.wire["codes0"].shape[0],
-                          "read_conv1": 0}
+    eager = telemetry.counts() - before
+    assert {k: n for k, n in eager.items() if k[0] == "layer_rows"} == {
+        ("layer_rows", "read_conv0"): batch.wire["codes0"].shape[0]}
+    assert eager[("card_stamp",)] == 2
     scorer.finalize(scorer.score_async(batch, decode=True))      # capture
-    wrapper = (dict(moe.layer_route_rows), card_stamp.card_stamp.launches)
-    replayed = dict(scorer.replayed_layer_route_rows)
+    before = telemetry.counts()
     t0 = telemetry.now_ns()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         scorer.finalize(scorer.score_async(batch, decode=True))  # replay
@@ -514,11 +501,9 @@ def test_a_replay_stamps_its_layer_route_read_convolver_once(card, counters):
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("card_stamp_kernel" in n for n in kernels) == 2, kernels
-    assert {k: n - replayed[k] for k, n in
-            scorer.replayed_layer_route_rows.items()} == eager_rows
-    # the wrappers count nothing for a replay
-    assert (dict(moe.layer_route_rows),
-            card_stamp.card_stamp.launches) == wrapper
+    # the replay counts what the eager batch did, rows and stamps, under
+    # "replayed" alone: the wrappers count nothing for it
+    assert telemetry.counts() - before == _replayed(eager)
     rec, = [s for s in telemetry.spans(t0, telemetry.now_ns())
             if s.name == "scorer.read_conv_layers"]
     assert rec.key == scorer._next - 1 and rec.end_ns > rec.start_ns
