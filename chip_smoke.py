@@ -53,6 +53,21 @@ Phases, each printing one JSON line:
              benchmark cell's batch (2,048 alleles of 20 to 60 reads) packed
              and dense, whose answers agree to the sums' order, and packed
              at C = 7;
+  conv_bf16  the eval bf16 conv kernel (ops/csrc/conv_bf16.cu) on every
+             conv of illumina_wide's compressor (3,072 x [36, 128] inputs:
+             the allele and site passes together) and head (2,048 x [18,
+             256]), fed the networks' own activations: each launch against
+             the float64 conv of its operands plus the fp32 bias rounded
+             once (at most 0.2% of the bf16 values differ), two launches
+             bit-equal, the sum rounded before the bias as a planted fault
+             (its share reported); the median of 20 launches by CUDA events
+             beside the cuDNN fp32 route the port ran before (conv1d_bf16 on
+             bf16-valued operands, TF32 off) and the bound at the bf16 peak,
+             and ptxas' resources; then illumina_addendum's layer-route read
+             convolver at bf16 on the cell's reads (81,920 packed rows)
+             through the kernel and through the cuDNN route, each timed
+             whole and at its first conv (Ci 6, the kernel's gather), every
+             conv launch of 4,096 rows within the bar against float64;
   main_path  call_genome of the port with the illumina config at full width
              (seeded init_params, highest precision, no worker processes) on
              a simulated 300 kb genome at 30x; the kernel's launch count of
@@ -306,8 +321,9 @@ def launched(before=(), only=None):
     ``before``, one of its ``counts()`` (since the process began when left
     out), grouped as the phases print it: the kernel's launches by route
     and by width, the read convolvers' reductions by route and network
-    (``"layers"``: the layer route), the layer route's rows and the card
-    stamps; under ``"replayed"`` the same for the Scorers' graph replays.
+    (``"layers"``: the layer route), the layer route's rows, the card
+    stamps and the eval bf16 conv kernel's launches; under ``"replayed"``
+    the same for the Scorers' graph replays.
     With ``only``, a kernel route, raises unless that route alone
     launched, at least once."""
     from collections import Counter
@@ -318,7 +334,8 @@ def launched(before=(), only=None):
     def group():
         return {"launches_by_route": dict.fromkeys(ROUTE_IDS, 0),
                 "launches_per_width": dict.fromkeys(WIDTH_ROUTES, 0),
-                "read_conv": {}, "layer_rows": {}, "card_stamps": 0}
+                "read_conv": {}, "layer_rows": {}, "card_stamps": 0,
+                "conv_bf16": 0}
 
     got = group()
     got["replayed"] = group()
@@ -335,6 +352,8 @@ def launched(before=(), only=None):
             g["layer_rows"][key[1]] = n
         elif key[0] == "card_stamp":
             g["card_stamps"] = n
+        elif key[0] == "conv_bf16":
+            g["conv_bf16"] = n
     by_route = got["launches_by_route"]
     if only is not None and not 0 < by_route[only] == sum(by_route.values()):
         raise AssertionError(f"launched {by_route}: route {only} only, at "
@@ -385,6 +404,25 @@ def time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps, calls=10):
+    """Median device time of one call of ``fn``, by CUDA events around
+    replays of a CUDA graph that holds ``calls`` calls (after a warm-up on
+    a side stream): the card's time alone, where ``time_ms`` would also
+    time the host's enqueue of a call shorter than it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps) / calls
 
 
 def device_phase():
@@ -1066,6 +1104,238 @@ def wide_kernel_phase(width1_bf16, seed=0):
     return line
 
 
+#: illumina_wide's compressor and head inputs at the benchmark cell's
+#: batch (1,024 sites x 2 alleles): the compressor's allele and site
+#: passes together, and the head's allele pass
+CONV_BF16_INPUTS = {"compressor0": (3072, 36, 128), "xattn0": (2048, 18, 256)}
+#: bf16_conv_check's layer bar: the share of bf16 values that may differ
+CONV_BF16_DIFFER_SHARE = 0.002
+#: the layer-route read convolver of the conv_bf16 phase's second leg
+#: (its first conv, Ci 6, takes the kernel's gather), and the rows of the
+#: cell's batch whose every conv launch is read against float64
+CONV_BF16_READ_CONVOLVER, CONV_BF16_READ_ROWS = "illumina_addendum", 4096
+#: each bf16 path's launches of the eval bf16 conv kernel and the launches
+#: its Scorers' graph replays ran again, from the launch ledger's change
+#: over that path's own run (``conv_bf16_path``)
+CONV_BF16_PATHS = {}
+
+
+def conv_bf16_path(path, got):
+    """Keep a bf16 path's eval conv kernel launches (``got``: ``launched``
+    of a snapshot taken just before the path ran) in ``CONV_BF16_PATHS``;
+    raise unless the path launched the kernel."""
+    entry = {"launches": got["conv_bf16"],
+             "replays": got["replayed"]["conv_bf16"]}
+    if entry["launches"] <= 0:
+        raise AssertionError(f"{path} ran its eval convs at bf16 without "
+                             f"the conv_bf16 kernel: {entry}")
+    CONV_BF16_PATHS[path] = entry
+    return entry
+
+
+def _conv_operands(m, x):
+    """A conv layer's bf16 input, its weight, fp32 bias and geometry."""
+    import torch
+
+    from hello_tpu_torch.nn import layers as L
+
+    normed = isinstance(m, L.WeightNormedConv1d)
+    return (x.to(torch.bfloat16), m.conv1d.weight() if normed else m.weight,
+            m.conv1d.bias if normed else m.bias,
+            dict(stride=m.stride, padding=m.padding, dilation=m.dilation,
+                 groups=m.groups))
+
+
+def _cudnn_route(x, w, b, **geo):
+    """What the layers ran at bf16 before the kernel (F3): the fp32 conv
+    of the bf16-valued operands (cuDNN, TF32 off), the fp32 bias, one
+    rounding to bf16, NCW transposes around it."""
+    import torch
+
+    from hello_tpu_torch.nn import layers as L
+
+    return L.conv1d_bf16(x.float().transpose(1, 2),
+                         w.to(torch.bfloat16).float(), b, **geo).to(
+                             torch.bfloat16).transpose(1, 2)
+
+
+def _read_convolver_leg(seed):
+    """``CONV_BF16_READ_CONVOLVER``'s read convolver (seeded weights) on the
+    layer route at bf16, over the benchmark cell's batch packed
+    (``cell_inputs``: 2,048 alleles of 20 to 60 reads, padded rows
+    included), through the kernel and through the cuDNN fp32 route
+    (``takes_conv_kernel`` off): each route's ms and its first conv's
+    (Ci 6: the kernel's gather), by CUDA events over 5 calls; every conv
+    launch of the first ``CONV_BF16_READ_ROWS`` rows read against float64
+    (at most 0.2% of values differ); and the two routes' per-allele sums
+    over their largest magnitude."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from hello_tpu_torch.nn import layers as L
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import conv_bf16 as cb
+    from hello_tpu_torch.pipeline.bf16_conv_check import (
+        conv_errors_against_float64)
+
+    model = init_params(create_model(CONV_BF16_READ_CONVOLVER),
+                        torch.Generator().manual_seed(seed)).cuda().eval()
+    (rows, row_allele, row_valid), _, A = cell_inputs(
+        np.random.RandomState(seed), 6, "cuda")
+    mask = torch.zeros((A, CELL_READS[1]), device="cuda")
+    batch = {"rows0": rows, "row_allele0": row_allele,
+             "row_valid0": row_valid, "read_mask0": mask}
+    part = {"rows0": rows[:CONV_BF16_READ_ROWS],
+            "row_allele0": row_allele[:CONV_BF16_READ_ROWS],
+            "row_valid0": row_valid[:CONV_BF16_READ_ROWS], "read_mask0": mask}
+    first = next(m for m in model.net("read_conv0").modules()
+                 if isinstance(m, L._ConvBase))
+    cudnn = mock.patch.object(L, "takes_conv_kernel", lambda *a: False)
+    run = lambda: model._read_reduce_layers(batch, 0)
+    L.set_precision("bf16")
+    try:
+        with torch.inference_mode():
+            x, w, b, geo = _conv_operands(first, rows.float())
+            errors, readings = [], []
+            with conv_errors_against_float64(errors, readings):
+                model._read_reduce_layers(part, 0)
+            got = run()
+            ms = time_ms(run, 5)
+            first_ms = time_ms(lambda: cb.conv1d_bf16_nwc(x, w, b, **geo), 5)
+            with cudnn:
+                want = run()
+                cudnn_ms = time_ms(run, 5)
+            cudnn_first_ms = time_ms(lambda: _cudnn_route(x, w, b, **geo), 5)
+    finally:
+        L.set_precision("highest")
+    leg = {"config": CONV_BF16_READ_CONVOLVER, "rows": rows.shape[0],
+           "positions_first_conv": rows.shape[0] * cb.out_length(
+               150, first.kernel_size, **{k: geo[k] for k in (
+                   "stride", "padding", "dilation")}),
+           "ms": ms, "cudnn_ms": cudnn_ms, "first_conv_ms": first_ms,
+           "cudnn_first_conv_ms": cudnn_first_ms,
+           "read_rows": CONV_BF16_READ_ROWS, "conv_launches_read":
+               len(readings), "cudnn_convs_in_reading": len(errors),
+           "max_differ_share": max(r["differ_share"] for r in readings),
+           "sums_vs_cudnn_max_over_max": float(
+               (got - want).abs().max() / want.abs().max())}
+    if errors or not readings or \
+            leg["max_differ_share"] > CONV_BF16_DIFFER_SHARE:
+        raise AssertionError(f"conv_bf16: the layer-route read convolver "
+                             f"fails its bar: {leg}")
+    return leg
+
+
+def conv_bf16_phase(seed=0):
+    """The eval bf16 conv kernel on each conv of ``illumina_wide``'s
+    compressor and head (``CONV_BF16_INPUTS``), fed the activations each
+    network gives its convs (the compressor fed random read-frame sums,
+    the head the compressor's outputs): held to the float64 conv rounded
+    once (``bf16_conv_check.kernel_reading``), two launches bit-equal, the
+    sum rounded before the bias as a planted fault; timed (``graph_ms``:
+    the median of 20 replays of 10 launches, by CUDA events) alone, as the
+    layers call it (the weight's re-layout and the output's allocation
+    too), and beside the cuDNN fp32 route it replaces (``conv1d_bf16`` on
+    bf16-valued operands, the casts and transposes as the layers ran them)
+    and the bound at the bf16 peak.  Then a layer-route read convolver on
+    the cell's reads (``_read_convolver_leg``)."""
+    import torch
+
+    from hello_tpu_torch.nn import layers as L
+    from hello_tpu_torch.nn.convert import init_params
+    from hello_tpu_torch.nn.moe import create_model
+    from hello_tpu_torch.ops import conv_bf16 as cb
+    from hello_tpu_torch.ops import read_conv as rc
+    from hello_tpu_torch.pipeline.bf16_conv_check import kernel_reading
+
+    t0 = time.perf_counter()
+    _, report = rc.build(cb.SOURCE)
+    build_s = time.perf_counter() - t0
+    ptxas = [line.strip() for line in report.splitlines()
+             if any(k in line for k in ("registers", "spill", "wgmma"))]
+    model = init_params(create_model("illumina_wide"),
+                        torch.Generator().manual_seed(seed)).cuda().eval()
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, lc, cc = CONV_BF16_INPUTS["compressor0"]
+    frames = 8.0 * torch.rand((n, lc, cc), generator=g, device="cuda")
+    captured = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args, name=name: captured.append((name, m, args[0])))
+        for name in CONV_BF16_INPUTS
+        for m in model.net(name).modules() if isinstance(m, L._ConvBase)]
+    L.set_precision("bf16")
+    lines, fails = [], []
+    try:
+        with torch.inference_mode():
+            compressed = model.net("compressor0")(frames)
+            na = CONV_BF16_INPUTS["xattn0"][0]
+            site = compressed[na + torch.arange(na, device="cuda") // 2]
+            model.net("xattn0")((compressed[:na], (site, site)))
+            for h in hooks:
+                h.remove()
+            for name, m, x in captured:
+                x, w, b, geo = _conv_operands(m, x)
+                run = lambda: cb.conv1d_bf16_nwc(x, w, b, **geo)
+                y, again = run(), run()
+                wp = cb.pack_weight(w)
+                out = torch.empty_like(y)
+                alone = lambda: cb.launch(x, wp, b, out, m.kernel_size,
+                                          m.stride, m.padding, m.dilation)
+                torch.cuda.synchronize()
+                read = kernel_reading(y, x, w, b, **geo)
+                # a planted fault: the sum rounded to bf16 before the bias
+                early = (cb.conv1d_bf16_nwc(x, w, None, **geo).float()
+                         + b).to(torch.bfloat16)
+                fault = kernel_reading(early, x, w, b, **geo)
+                nb, lin, ci = x.shape
+                co, _, k = w.shape
+                m_pos = nb * y.shape[1]
+                flop = 2.0 * m_pos * co * k * ci
+                line = {"net": name, "x": list(x.shape), "co": co, "k": k,
+                        "stride": m.stride, "padding": m.padding,
+                        "tile": "x".join(map(str, cb.tile_for(m_pos, co))),
+                        "gflop": flop / 1e9,
+                        "ms": graph_ms(alone, 20),
+                        "call_ms": graph_ms(run, 20),
+                        "library_ms": graph_ms(
+                            lambda: _cudnn_route(x, w, b, **geo), 20),
+                        "bound_ms": 1e3 * flop / peaks["bf16"],
+                        "differ_share": read["differ_share"],
+                        "max_err_over_max": read["max_err_over_max"],
+                        "fault_round_before_bias_share":
+                            fault["differ_share"],
+                        "bit_equal_runs": bool(torch.equal(y, again))}
+                lines.append(line)
+                if not (read["differ_share"] <= CONV_BF16_DIFFER_SHARE
+                        < fault["differ_share"] and line["bit_equal_runs"]):
+                    fails.append(line)
+    finally:
+        L.set_precision("highest")
+    total = {key: sum(x[key] for x in lines)
+             for key in ("ms", "call_ms", "library_ms", "bound_ms", "gflop")}
+    out = {"phase": "conv_bf16", "kernel": "conv1d_bf16",
+           "source": "hello_tpu_torch/ops/csrc/conv_bf16.cu",
+           "build_s": build_s, "ptxas": ptxas,
+           "convs": lines, **total,
+           "share_of_bound": total["bound_ms"] / total["ms"],
+           "by_net_ms": {name: sum(x["ms"] for x in lines
+                                   if x["net"] == name)
+                         for name in CONV_BF16_INPUTS},
+           "max_differ_share": max(x["differ_share"] for x in lines),
+           "min_fault_share": min(x["fault_round_before_bias_share"]
+                                  for x in lines)}
+    if fails:
+        emit(out)
+        raise AssertionError(f"conv_bf16 fails its bar on {fails}")
+    out["read_convolver"] = _read_convolver_leg(seed)
+    emit(out)
+    return out
+
+
 def call_on_cpu(model_name, scorer, bams, fasta, out_cpu, regions=None):
     """The card's weights (and batch-norm statistics) on the CPU (plain
     read-convolver version, or the layer route, over packed rows), at the
@@ -1222,8 +1492,11 @@ def hybrid_path_phase(workdir):
     if set(bf16_model.read_conv_routes().values()) != {"bf16"}:
         raise AssertionError(f"the bf16 hybrid's routes "
                              f"{bf16_model.read_conv_routes()}")
+    counted = telemetry.counts()
     layers_bf16 = bf16_layers_card_vs_cpu("hybrid", bf16_model.model, ds)
     layers_bf16["seconds"] = time.perf_counter() - t0
+    layers_bf16["conv_bf16"] = conv_bf16_path("hybrid_path_bf16_layers",
+                                              launched(counted))
     set_precision("highest")
     emit({"phase": "hybrid_path", "model": "hybrid",
           "genome_bp": HYBRID_GENOME_BP, "coverage": COVERAGE,
@@ -1326,6 +1599,8 @@ def parallel_path_phase(workdir):
             route = route_of[precision]
             got = launched(counted, only=route)
             launches[route] = got["launches_by_route"][route]
+            if precision == "bf16":
+                conv_bf16_path("parallel_path", got)
             legs[precision] = {"records": read_vcf(out), "seconds": seconds,
                                "sites": stats["sites"], **got,
                                "graph_counts": dict(scorer.graph_counts),
@@ -1615,9 +1890,12 @@ def bench_packed_path_phase():
     kernel, plain, version, legs, launches = {}, {}, {}, {}, {}
     agreement, sums, checks = {}, {}, {}
     for argv in BENCH_PACKED_ARGVS:
+        counted = telemetry.counts()
         result = bp.run(argv)
         bp.report(result)
         precision = result["precision"]
+        if precision == "bf16":
+            conv_bf16_path("bench_packed_path", launched(counted))
         route = rc.route_for_precision(precision)
         for path in bp.PATHS:
             by_route = result["paths"][path]["launches_by_route"]
@@ -1904,9 +2182,11 @@ def bench_path_phase(workdir):
     result = bench.run(BENCH_ARGV, workdir=workdir)
     line, legs, outputs = result["line"], result["legs"], result["outputs"]
     # the pipeline leg's Scorer is the only one that replays in bench.run
+    on_path = launched(at_start)
     graph_use = {"graph_counts": dict(outputs["pipeline"]["scorer"]
                                       .graph_counts),
-                 "replayed": launched(at_start)["replayed"]}
+                 "replayed": on_path["replayed"]}
+    conv_bf16_path("bench_path", on_path)
     print(json.dumps(line), flush=True)
     rates = [k for k in line if k.endswith("_windows_per_s")] + [
         "value", "vs_baseline", "end_to_end_pct_of_device"]
@@ -2409,6 +2689,7 @@ def soak_path_phase(workdir):
     counted = json.loads(proc.stdout.strip().splitlines()[-1])
     memory = counted.pop("max_memory_allocated")
     by_route = counted["launches_by_route"]
+    conv_bf16_path("soak_path", counted)
     report_json = report[:-len(".md")] + ".json"
     if not (os.path.exists(report) and os.path.exists(report_json)):
         raise AssertionError(f"the soak wrote {os.listdir(workdir)}")
@@ -3054,6 +3335,8 @@ def configs_path_phase(workdir, ds, hybrid_ds, parallel_ds, kernel_line):
                     if wide_kernel else sum(by_width.values())
                     or min(calls) <= 0):
                 raise AssertionError(f"{name} at {leg_name}: launched {got}")
+            if precision == "bf16":
+                conv_bf16_path(f"configs_path_{name}_{leg_name}", got)
             card = read_vcf(out_card)
             leg = {"sites": stats["sites"], "records": len(card),
                    "seconds": card_s,
@@ -3337,6 +3620,7 @@ def main():
     lines = [kernel_phase("illumina", 6, seed=0, rates=rates),
              kernel_phase("pacbio_hp", 7, seed=1, rates=rates)]
     wide_kernel_phase(lines[0]["bf16"])
+    conv = conv_bf16_phase()
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as workdir:
         launches, ds, card = main_path_phase(os.path.join(workdir, "illumina"))
         hybrid, hybrid_ds = hybrid_path_phase(os.path.join(workdir, "hybrid"))
@@ -3412,6 +3696,24 @@ def main():
             "wgmma_bound_ms": k6["wgmma_bound_ms"],
             "share_of_bound": k6["share_of_bound"],
             "ms_C7": k7["ms"], "library_ms": None})
+    kernels.append({
+        "name": "conv1d_bf16", "route": "cuda", "kernel_route": "bf16",
+        "source": conv["source"],
+        # no TPU kernel: hello_tpu's eval convs at bf16 are XLA convs
+        "replaces": None,
+        # each bf16 path's own launches, counted from just before it ran
+        # (bench_read_conv_path runs its layer route at default and
+        # highest: no eval conv at bf16)
+        "launches": sum(v["launches"] for v in CONV_BF16_PATHS.values()),
+        "launches_by_path": {k: v["launches"]
+                             for k, v in CONV_BF16_PATHS.items()},
+        "replays_by_path": {k: v["replays"]
+                            for k, v in CONV_BF16_PATHS.items()
+                            if v["replays"]},
+        "max_differ_share": conv["max_differ_share"], "ms": conv["ms"],
+        "bound_ms": conv["bound_ms"], "bound_by": "operations",
+        "share_of_bound": conv["share_of_bound"],
+        "library_ms": conv["library_ms"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv_bf16
+
 #: the precisions of hello_tpu's set_precision
 PRECISIONS = ("highest", "high", "default", "bf16")
 
@@ -46,11 +48,12 @@ PRECISIONS = ("highest", "high", "default", "bf16")
 #: bf16, multiplies them exactly, accumulates in fp32, adds the fp32 bias
 #: and rounds the result to bf16 once (in train mode it rounds the sum,
 #: then adds the bf16 bias, as hello_tpu's training conv).  Its Linear
-#: layers may take TF32 (cuBLAS), as at "default"; its convs run with
-#: cuDNN's TF32 off: cuDNN's TF32 kernels keep those products exact but sum
-#: them less accurately than its fp32 kernels, and round more outputs to
-#: the other bf16 neighbour (python -m
-#: hello_tpu_torch.pipeline.bf16_conv_check).
+#: layers may take TF32 (cuBLAS), as at "default".  On the card its
+#: eval-mode convs run ops/conv_bf16's wgmma kernel (bf16 products, fp32
+#: sums); its other convs (train mode, and the CPU's) run with cuDNN's
+#: TF32 off: cuDNN's TF32 kernels keep those products exact but sum them
+#: less accurately than its fp32 kernels, and round more outputs to the
+#: other bf16 neighbour (python -m hello_tpu_torch.pipeline.bf16_conv_check).
 #: Linear outputs (the expert logits) stay fp32.  Switch with
 #: set_precision().
 PRECISION = "highest"
@@ -64,7 +67,9 @@ def set_precision(precision: str):
     'highest' / 'high' (fp32 math, TF32 off), 'default' (TF32 allowed in
     cuBLAS and cuDNN) or 'bf16' (bf16 conv activations; TF32 allowed in
     cuBLAS, not in cuDNN, whose fp32 kernels sum the exact products of the
-    convs' bf16-valued operands more accurately than its TF32 kernels)."""
+    convs' bf16-valued operands more accurately than its TF32 kernels; on
+    the card every eval-mode conv runs ops/conv_bf16's kernel instead,
+    ``takes_conv_kernel``)."""
     global PRECISION, ACT_DTYPE
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} is not one of "
@@ -80,11 +85,21 @@ def conv1d_bf16(x, w, b, stride=1, padding=0, dilation=1, groups=1):
     product is exact, the sum is taken in fp32 (``set_precision("bf16")``
     keeps cuDNN's TF32 off, whose sums are less accurate), the fp32 bias
     is added after and the result is left unrounded (fp32).  The bf16
-    activation route of every conv, in the layers and in the read-conv
-    kernel's plain version."""
+    activation route of the layers' convs on the CPU and in train mode
+    (on the card an eval-mode conv runs ``ops.conv_bf16``'s kernel), and
+    of the read-conv kernel's plain version."""
     y = F.conv1d(x, w, None, stride=stride, padding=padding,
                  dilation=dilation, groups=groups)
     return y if b is None else y + b[None, :, None]
+
+
+def takes_conv_kernel(training: bool, dtype, device) -> bool:
+    """Whether a conv runs ``ops.conv_bf16``'s kernel: in eval mode, at
+    bf16 activations, on a CUDA tensor.  Train mode (which rounds the sum
+    before a bf16 bias and needs gradients), the fp32 precisions and the
+    CPU keep ``F.conv1d`` / ``conv1d_bf16``."""
+    return (not training and dtype == torch.bfloat16
+            and torch.device(device).type == "cuda")
 
 
 class _RoundTo(torch.autograd.Function):
@@ -163,28 +178,41 @@ class _ConvBase(nn.Module):
         return self.in_channels // self.groups * self.kernel_size
 
     def _conv(self, x, w, b):
-        """NWC conv.  With bf16 activations the conv runs in fp32 on
-        bf16-valued input and weight (every product exact, summed in fp32
-        math: cuDNN's TF32 is off at bf16).  In eval mode the fp32 bias is
-        added and the sum is rounded to bf16 once, where hello_tpu's conv
-        accumulates in fp32 and rounds after its bias (hello_tpu
-        nn/layers.py Conv1d.apply).  In train mode the sum is rounded to
-        bf16 first and the bias, rounded to bf16, is added in bf16, as
-        hello_tpu's training conv (its output in bf16) does.  The gradients
-        follow hello_tpu's jitted step: a bf16 input's is rounded to bf16
-        once from its fp32 sum, the weight's and an fp32 input's stay fp32
-        (``_RoundTo``), and the bias's is the fp32 sum of the bf16
-        cotangent rounded to bf16 once (XLA on the CPU accumulates that sum
-        in bf16 and lands a few bf16 ulps away)."""
+        """NWC conv.  With bf16 activations the conv multiplies the bf16
+        input by the bf16-rounded weight exactly and sums in fp32: in eval
+        mode on the card in ``ops.conv_bf16``'s kernel, which reads and
+        writes bf16 NWC and has no backward (``takes_conv_kernel``; so it
+        runs with gradients off), elsewhere as an fp32 conv of the
+        bf16-valued operands (``conv1d_bf16``; cuDNN's TF32 is off at
+        bf16).  In eval mode the fp32 bias is added and the sum is rounded
+        to bf16 once, where hello_tpu's conv accumulates in fp32 and rounds
+        after its bias (hello_tpu nn/layers.py Conv1d.apply).  In train
+        mode the sum is rounded to bf16 first and the bias, rounded to
+        bf16, is added in bf16, as hello_tpu's training conv (its output in
+        bf16) does.  The gradients follow hello_tpu's jitted step: a bf16
+        input's is rounded to bf16 once from its fp32 sum, the weight's and
+        an fp32 input's stay fp32 (``_RoundTo``), and the bias's is the fp32
+        sum of the bf16 cotangent rounded to bf16 once (XLA on the CPU
+        accumulates that sum in bf16 and lands a few bf16 ulps away)."""
         dtype = ACT_DTYPE if x.dtype == torch.float32 else x.dtype
         if dtype in (None, torch.float32):
             y = F.conv1d(x.transpose(1, 2), w, b, stride=self.stride,
                          padding=self.padding, dilation=self.dilation,
                          groups=self.groups)
             return y.transpose(1, 2)
+        train = self.training
+        if takes_conv_kernel(train, dtype, x.device):
+            if torch.is_grad_enabled() and (x.requires_grad
+                                            or w.requires_grad):
+                raise RuntimeError(
+                    "an eval-mode bf16 conv on the card runs ops/conv_bf16's "
+                    "kernel, which has no backward: call it under "
+                    "torch.no_grad() or torch.inference_mode(), or train")
+            return conv_bf16.conv1d_bf16_nwc(
+                x.to(dtype), w, b, stride=self.stride, padding=self.padding,
+                dilation=self.dilation, groups=self.groups)
         xf = _RoundTo.apply(x, dtype) if x.dtype == torch.float32 \
             else x.float()
-        train = self.training
         y = conv1d_bf16(xf.transpose(1, 2), _RoundTo.apply(w, dtype),
                         None if train else b, stride=self.stride,
                         padding=self.padding, dilation=self.dilation,

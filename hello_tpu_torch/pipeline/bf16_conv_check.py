@@ -1,16 +1,27 @@
-"""Whether cuDNN's TF32 moves the values of the ``bf16`` precision's convs on
-the card, with the switch off and on in one process.
+"""Whether the ``bf16`` precision's convs on the card multiply exactly and
+sum in fp32, and whether cuDNN's TF32 moves the values of those that run
+through cuDNN, with the switch off and on in one process.
 
-At ``bf16`` every conv of the port takes bf16-valued fp32 operands
-(``nn/layers.conv1d_bf16``) and relies on the math multiplying them
-exactly, as hello_tpu's bf16 convs do; ``set_precision("bf16")`` keeps
-cuDNN's TF32 off for that.  For each model and weight seed this reports:
+At ``bf16`` every conv of the port multiplies bf16 operands exactly and
+sums in fp32, as hello_tpu's bf16 convs do.  On the card the eval-mode
+convs run ``ops/conv_bf16``'s kernel (bf16 NWC in, fp32 sums, the fp32
+bias, one rounding to bf16 out), which no cuDNN switch reaches; the others
+(train mode, and the CPU's) run cuDNN's fp32 convs on bf16-valued operands
+(``nn/layers.conv1d_bf16``), for which ``set_precision("bf16")`` keeps
+cuDNN's TF32 off.  For each model and weight seed this reports:
 
 * ``convs``: every ``conv1d_bf16`` call of one card forward of featurized
   sites, against the same operands convolved in float64 on the card: the
   largest error over the output's largest magnitude.  Exact products with
   fp32 sums stay within a few 2^-24; operands rounded to TF32 would show
-  errors near 2^-11.
+  errors near 2^-11.  (A card forward in eval mode makes none.)
+* ``kernel_convs``: every launch of the conv kernel in the same forward
+  (``ops.conv_bf16.conv1d_bf16_nwc``), against the float64 conv of its
+  bf16 operands plus the fp32 bias, rounded once to bf16
+  (``bf16_round_once``): the share of its bf16 outputs that differ
+  (``differ_share``; an fp32 sum lands on the other side of a bf16 tie
+  for a few values in 10^3, a sum rounded before the bias or a truncation
+  for far more) and the largest error over the largest magnitude.
 * ``layers``: every layer of every network fed the CPU's own bf16 input to
   it: the share of bf16 outputs that differ from the CPU's, and the largest
   difference over the layer's largest value (one bf16 ulp is 2^-8 to 2^-7
@@ -150,15 +161,49 @@ def _layers_of_call(cpu_model, card_model, net_name, call, x, device):
     return out
 
 
+def bf16_round_once(y64: torch.Tensor) -> torch.Tensor:
+    """float64 -> bf16, rounded once to the nearest (ties to even): through
+    fp32, moved one fp32 ulp toward the exact value where the fp32 value
+    fell on a bf16 tie that the exact value does not."""
+    y32 = y64.float()
+    tie = (y32.view(torch.int32) & 0xFFFF) == 0x8000
+    off = y32.double() != y64
+    toward = torch.nextafter(y32, torch.where(
+        y64 > y32.double(), torch.inf, -torch.inf).float())
+    return torch.where(tie & off, toward, y32).to(torch.bfloat16)
+
+
+def kernel_reading(y, x, w, b, **kwargs):
+    """One launch of the conv kernel against float64: ``y`` (bf16 NWC) and
+    the float64 conv of its bf16 operands ``x`` (NWC) and ``w`` rounded to
+    bf16, plus ``b``, rounded once: ``differ_share``, the share of ``y``'s
+    values that differ, and ``max_err_over_max``."""
+    y64 = torch.nn.functional.conv1d(
+        x.double().transpose(1, 2), w.to(torch.bfloat16).double(), None,
+        **kwargs)
+    if b is not None:
+        y64 = y64 + b.double()[None, :, None]
+    y64 = y64.transpose(1, 2)
+    want = bf16_round_once(y64)
+    scale = float(y64.abs().max()) or 1.0
+    return {"differ_share": float((y != want).float().mean()),
+            "max_err_over_max": float((y.double() - y64).abs().max())
+            / scale}
+
+
 @contextlib.contextmanager
-def conv_errors_against_float64(errors):
+def conv_errors_against_float64(errors, kernel=None):
     """While active, every ``nn.layers.conv1d_bf16`` call also convolves its
     operands in float64 on their device and appends the largest error of
     its fp32 result over the float64 result's largest magnitude (bias
-    included) to ``errors``."""
+    included) to ``errors``; with a list ``kernel``, every call of the conv
+    kernel's wrapper (``ops.conv_bf16.conv1d_bf16_nwc``, the card's
+    eval-mode bf16 convs) appends its ``kernel_reading`` there."""
     from ..nn import layers
+    from ..ops import conv_bf16
 
     plain = layers.conv1d_bf16
+    launch = conv_bf16.conv1d_bf16_nwc
 
     def checked(x, w, b, **kwargs):
         y = plain(x, w, b, **kwargs)
@@ -168,11 +213,19 @@ def conv_errors_against_float64(errors):
         errors.append(float((y.double() - y64).abs().max()) / scale)
         return y
 
+    def read(x, w, b, **kwargs):
+        y = launch(x, w, b, **kwargs)
+        kernel.append(kernel_reading(y, x, w, b, **kwargs))
+        return y
+
     layers.conv1d_bf16 = checked
+    if kernel is not None:
+        conv_bf16.conv1d_bf16_nwc = read
     try:
         yield errors
     finally:
         layers.conv1d_bf16 = plain
+        conv_bf16.conv1d_bf16_nwc = launch
 
 
 def _worst(lines, key):
@@ -199,14 +252,20 @@ def forward_readings(name, seed, batch, device):
     try:
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
-            errors = []
-            with conv_errors_against_float64(errors), torch.inference_mode():
+            errors, kernel = [], []
+            with conv_errors_against_float64(errors, kernel), \
+                    torch.inference_mode():
                 card_model(card_batch)
             layers = layers_against_cpu(cpu_model, card_model, batch)
             out["cudnn_tf32_on" if tf32 else "cudnn_tf32_off"] = {
                 "convs": len(errors),
-                "conv_max_err_over_max": max(errors),
-                "conv_median_err_over_max": float(np.median(errors)),
+                "conv_max_err_over_max": max(errors, default=None),
+                "conv_median_err_over_max":
+                    float(np.median(errors)) if errors else None,
+                "kernel_convs": len(kernel),
+                "kernel_max_differ_share": _worst(kernel, "differ_share"),
+                "kernel_max_err_over_max": _worst(kernel,
+                                                  "max_err_over_max"),
                 "layers_bf16": sum("differ_share" in x for x in layers),
                 "layer_max_differ_share": _worst(layers, "differ_share"),
                 "layer_max_diff_over_layer_max": _worst(

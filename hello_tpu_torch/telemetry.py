@@ -183,6 +183,9 @@ def count(key: tuple, n: int = 1):
       convolver kernel (``ops.read_conv.read_conv_reduce`` on CUDA tensors;
       its plain version on the CPU counts nothing);
     * ``("card_stamp",)``: a launch of ``ops.card_stamp``;
+    * ``("conv_bf16",)``: a launch of the eval bf16 conv kernel
+      (``ops.conv_bf16``, every eval-mode conv layer on the card at
+      ``bf16``);
     * ``("read_conv", net, route)``: an eval-mode reduction of read
       convolver ``net`` (``nn.moe``), on the CPU too; ``route`` is its
       fold's kernel route, or ``"layers"`` for the layer route;

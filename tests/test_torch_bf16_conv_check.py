@@ -99,3 +99,47 @@ def test_hybrid_layers_against_cpu_visit_every_network(bf16, tmp_path):
     assert all(x.get("differ_share", 0) == 0
                and x.get("max_diff_over_layer_max", 0) == 0
                and x.get("fp32_max_rel", 0) == 0 for x in lines)
+
+
+def test_round_once_breaks_the_ties_that_fp32_makes():
+    """A float64 value just past a bf16 tie rounds away from the tie's
+    even neighbour, which its fp32 rounding (onto the tie) would give; an
+    exact tie rounds to even; other values as fp32 -> bf16 rounds them."""
+    tie = 1.0 + 2.0 ** -8                   # halfway between 1 and 1 + 2^-7
+    y64 = torch.tensor([tie + 2.0 ** -40, tie - 2.0 ** -40, tie, 3.3, -tie
+                        - 2.0 ** -40], dtype=torch.float64)
+    got = check.bf16_round_once(y64).double().tolist()
+    assert got == [1.0 + 2.0 ** -7, 1.0, 1.0, float(torch.tensor(3.3).to(
+        torch.bfloat16)), -1.0 - 2.0 ** -7]
+
+
+def test_kernel_calls_are_read_against_float64(monkeypatch):
+    """The reading of the conv kernel's wrapper (on the CPU, a stand-in
+    that computes the kernel's function with ``conv1d_bf16`` and one
+    rounding to bf16): one reading a call, its bf16 output against the
+    float64 conv rounded once, and the wrapper restored after."""
+    from hello_tpu_torch.nn import layers
+    from hello_tpu_torch.ops import conv_bf16
+
+    conv = layers.conv1d_bf16
+
+    def plain(x, w, b, **kwargs):
+        return conv(
+            x.float().transpose(1, 2), w.to(torch.bfloat16).float(), b,
+            **kwargs).to(torch.bfloat16).transpose(1, 2)
+
+    monkeypatch.setattr(conv_bf16, "conv1d_bf16_nwc", plain)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 18, 64), generator=g).to(torch.bfloat16)
+    w = torch.randn((32, 64, 3), generator=g) / 8
+    b = torch.randn((32,), generator=g)
+    errors, kernel = [], []
+    launch = conv_bf16.conv1d_bf16_nwc
+    with check.conv_errors_against_float64(errors, kernel):
+        y = conv_bf16.conv1d_bf16_nwc(x, w, b, stride=2, padding=1)
+    assert conv_bf16.conv1d_bf16_nwc is launch
+    assert errors == [] and len(kernel) == 1 and y.shape == (4, 9, 32)
+    # an fp32 sum of 192 exact products lands on the other side of a bf16
+    # tie for few values, and within half a bf16 ulp of the largest
+    assert kernel[0]["differ_share"] <= 0.01
+    assert 0 < kernel[0]["max_err_over_max"] <= 2.0 ** -8

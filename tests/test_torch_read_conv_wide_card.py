@@ -227,8 +227,14 @@ def test_each_batch_and_replay_launches_the_wide_kernel_once(card):
 
     scorer = Scorer(_model(), device=card)
     wire = _wire(SEED + 4, 64)
+    # the eval convs outside the read convolver run the conv kernel: the
+    # compressor's twice (its allele and site passes), the head's once
+    convs = {net: sum(isinstance(m, layers._ConvBase)
+                      for m in scorer.model.net(net).modules())
+             for net in ("compressor0", "xattn0")}
     once = {("read_conv_reduce", "bf16", 2): 1, ("card_stamp",): 2,
-            ("read_conv", "read_conv0", "bf16"): 1}
+            ("read_conv", "read_conv0", "bf16"): 1,
+            ("conv_bf16",): 2 * convs["compressor0"] + convs["xattn0"]}
     before = telemetry.counts()
     scorer.finalize(scorer.score_async(wire, decode=True))      # eager
     assert telemetry.counts() - before == once
